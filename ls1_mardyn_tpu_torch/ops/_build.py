@@ -1,0 +1,94 @@
+"""Builds the package's CUDA kernels at first use.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (sm_90a)
+into a shared library with a plain C interface, loaded through ctypes.
+The library lands in ``build/kernels/`` at the repository root (listed
+in .gitignore) under a name that carries a hash of the source text and
+the flags, so an edited source is rebuilt and an unchanged one is
+reused within a checkout.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+# no --use_fast_math: the rebin must stay bit-identical to its plain
+# version, and the force kernel has no approximate-reciprocal mode
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_LOADED: dict = {}
+_LOCK = threading.Lock()
+# seconds spent in nvcc by this process, per library (build report)
+BUILD_SECONDS: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "ls1_mardyn_tpu_torch are built from csrc/ at first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{h}.so"
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu; cached per process."""
+    with _LOCK:
+        if name in _LOADED:
+            return _LOADED[name]
+        out = library_path(name)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+            log = out.with_suffix(".log")
+            log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed for csrc/{name}.cu (see {log}):\n"
+                    + res.stderr[-4000:]
+                )
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _LOADED[name] = lib
+        return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas register/shared-memory report) of the
+    library this checkout builds for csrc/<name>.cu, or ''."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")
