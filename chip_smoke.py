@@ -2,26 +2,46 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ls1_mardyn_tpu_torch/csrc, holds
-each against its plain PyTorch version on the card, then drives the
-main path -- MDSimulation -> RMMEngine -> RMMSimulation, a 1CLJ NVT
-fluid of N = 4,194,304 molecules (rho 0.8, rc 2.5, T 1.1) started from
-the committed equilibrated seed assets/bench_seed_524288.npz tiled
-2x2x2 -- and checks that every kernel of that path was launched by it.
+Builds the port's CUDA kernels from ls1_mardyn_tpu_torch/csrc (one nvcc
+per source, all started together), holds each against its plain PyTorch
+version on the card, then drives the port's two engines at full width
+-- a 1CLJ NVT fluid of N = 4,194,304 molecules (rho 0.8, rc 2.5, T 1.1)
+started from the committed equilibrated seed
+assets/bench_seed_524288.npz tiled 2x2x2 -- and checks that every
+kernel of a path was launched by it: MDSimulation -> RMMEngine ->
+RMMSimulation (kernels K1, K2) and MDSimulation(force_mode="pallas") ->
+SingleChipSimulation -> CudaLJPath (kernels K3, K4).
 
 Phases (each prints one line; any failure raises, so the script exits
 non-zero and never prints the result line):
-  device  GPU name and power limit, torch / CUDA versions
-  build   nvcc build of every kernel, seconds
-  K1      LJ cell forces vs plain, 16^3 cells cut from the seed, cap 32
-          and 64, f32 (max|dF|/max|F| <= 1e-5) and f64 (<= 1e-12)
-  K2      shift-merge rebin vs plain on a state drifted 12 steps,
-          bit-identical, f32 and f64; overflow on a two-cell hop
-  small   the whole driver on the card vs on the CPU (plain versions),
-          N=1024, f64, 20 steps: T, p, Upot rtol 1e-9, r and v 1e-9
-  main    the main path at N=4,194,304 for 2*rebin_every+2 steps
-  times   K1 and K2 against their plain versions at the main path's
-          shapes (CUDA events)
+  device   GPU name and power limit, torch / CUDA versions
+  build    nvcc build of every kernel, seconds
+  K1       LJ cell forces vs plain, 16^3 cells cut from the seed, cap 32
+           and 64, f32 (max|dF|/max|F| <= 1e-5) and f64 (<= 1e-12)
+  K2       shift-merge rebin vs plain on a state drifted 12 steps,
+           bit-identical, f32 and f64; overflow on a two-cell hop
+  K3       cell-window forces vs plain on 12^3 cells cut from the seed,
+           cap 32 and 64, f32 and f64 (limits as K1): plain, with Vi,
+           with explicit z halo rows, and at ny = 2
+  K4       row forces vs plain on the same cells: cell-local and
+           absolute coordinates, z and y halo rows, nx = 2; absolute f32
+           against the f64 result (<= 5e-3, see phase_k4)
+  small    the RMM driver on the card vs on the CPU (plain versions),
+           N=1024, f64, 20 steps: T, p, Upot rtol 1e-9, r and v 1e-9
+  general-small  the general engine on the card vs on the CPU, f64, 20
+           steps: force_mode="pallas" (1CLJ, N=1000) and "cells" (a
+           2CLJ+quadrupole fluid): T, p, Upot rtol 1e-9; r, v, q, L 1e-9
+  main     the RMM path at N=4,194,304 for rebin_every+2 steps and a
+           timed window of rebin_every steps
+  general  the general engine at N=4,194,304: MDSimulation(
+           force_mode="pallas"), a warm-up and a timed window of 16
+           steps (K3 once per step), then 3 steps with the path's cw
+           switched off (K4); peak device memory
+  multisite  a 2CLJ+quadrupole fluid of ~1e5 rigid molecules through
+           force_mode="cells" (the plain traversal, no kernel), 10 steps
+  times    K1..K4 against their plain versions at the shapes their
+           paths gave them (CUDA events), and each kernel's bound; K3
+           and K4 also against plain on K1's grid (56,60,60)
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
 result.
@@ -40,10 +60,22 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = os.path.join(HERE, "assets", "bench_seed_524288.npz")
 N_MAIN = 4_194_304
 RHO, RC, TEMP, DT = 0.8, 2.5, 1.1, 0.002
-K1_SRC = "ls1_mardyn_tpu_torch/csrc/lj_cells.cu"
-K2_SRC = "ls1_mardyn_tpu_torch/csrc/rebin_shift.cu"
-K1_TPU = "ls1_mardyn_tpu/ops/pallas_lj.py:2206"
-K2_TPU = "ls1_mardyn_tpu/ops/pallas_rebin.py:275"
+LIBS = ("lj_cells", "rebin_shift", "lj_cells_cw", "lj_cells_row")
+# name, source, TPU kernel it replaces
+KERNELS = {
+    "K1": ("K1 lj_cell_forces", "ls1_mardyn_tpu_torch/csrc/lj_cells.cu",
+           "ls1_mardyn_tpu/ops/pallas_lj.py:2206"),
+    "K2": ("K2 rebin_shift", "ls1_mardyn_tpu_torch/csrc/rebin_shift.cu",
+           "ls1_mardyn_tpu/ops/pallas_rebin.py:275"),
+    "K3": ("K3 lj_cell_forces_cw", "ls1_mardyn_tpu_torch/csrc/lj_cells_cw.cu",
+           "ls1_mardyn_tpu/ops/pallas_lj.py:1560"),
+    "K4": ("K4 lj_cell_forces_row", "ls1_mardyn_tpu_torch/csrc/lj_cells_row.cu",
+           "ls1_mardyn_tpu/ops/pallas_lj.py:356"),
+}
+# the card's published peaks (H100 SXM data sheet): f32 outside the
+# tensor cores, and device memory
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def say(phase, **kw):
@@ -129,14 +161,25 @@ def phase_build():
     from ls1_mardyn_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    for name in ("lj_cells", "rebin_shift"):
+    _build.build_all(LIBS)
+    for name in LIBS:
         _build.load(name)
     secs = time.perf_counter() - t0
-    regs = [ln.split(":", 1)[1].strip() for name in ("lj_cells", "rebin_shift")
-            for ln in _build.build_log(name).splitlines() if "Used" in ln]
+    regs = {name: [ln.split(":", 1)[1].strip().split(",")[0]
+                   for ln in _build.build_log(name).splitlines() if "Used" in ln]
+            for name in LIBS}
     say("build", seconds=round(secs, 2),
         nvcc={k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()},
         ptxas=json.dumps(regs))
+
+
+def rel_errors(a, b):
+    """max|dF|/max|F|, |du6/u6|, |dvir/vir| of two (f, u6, vir)."""
+    (fa, ua, va), (fb, ub, vb) = a, b
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(fa).all()), "non-finite forces")
+    return (float((fa - fb).abs().max() / fb[:, :, :3].abs().max()),
+            abs(float(ua - ub) / float(ub)), abs(float(va - vb) / float(vb)))
 
 
 def phase_k1(device):
@@ -149,13 +192,8 @@ def phase_k1(device):
             kw = dict(dims=sim.spec.dims, cap=cap, cell_len=sim.cell_len,
                       eps24=sim.eps24, sig2=sim.sig2, shift6=sim.shift6,
                       rc2=sim.rc2)
-            fa, ua, va = lj_cell_forces(r4, **kw)
-            fb, ub, vb = lj_cell_forces_reference(r4, **kw)
-            torch.cuda.synchronize()
-            ef = float((fa - fb).abs().max() / fb.abs().max())
-            eu = abs(float(ua - ub) / float(ub))
-            ev = abs(float(va - vb) / float(vb))
-            check(bool(torch.isfinite(fa).all()), "K1 non-finite forces")
+            ef, eu, ev = rel_errors(lj_cell_forces(r4, **kw),
+                                    lj_cell_forces_reference(r4, **kw))
             say("K1", dtype=str(dtype).split(".")[1], cap=cap,
                 grid=sim.spec.dims, rel_F=f"{ef:.3e}", rel_u6=f"{eu:.3e}",
                 rel_vir=f"{ev:.3e}", limit=lim)
@@ -193,57 +231,263 @@ def phase_k2(device):
     say("K2", overflow_on_two_cell_hop=True, launches=rebin_shift.launches)
 
 
-def make_sim(tiles, device, dtype=torch.float32):
+def cut_planes(cap, dtype, device, nd=12):
+    """Contiguous r_i [nd, nd, 4, nd*cap] (cell-local coordinates) of
+    nd^3 cells cut from the seed, with its cell edge and LJ constants."""
+    sim = cut_sim(cap, dtype, device, nd=nd)
+    lj = dict(eps24=sim.eps24, sig2=sim.sig2, shift6=sim.shift6, rc2=sim.rc2)
+    return sim.state.planes[:, :, :4, :].contiguous(), sim.cell_len, lj
+
+
+def sub_block(r_i, cap, nx, ny, nz):
+    """The first nz x ny rows and nx cells of r_i, as a periodic grid of
+    its own."""
+    return r_i[:nz, :ny, :, : nx * cap].contiguous()
+
+
+def x_halo(a, nx, cap, shift=0.0):
+    """One periodic halo cell per side in x, shifted by -+shift where
+    valid (absolute coordinates)."""
+    lo = a[..., (nx - 1) * cap:].clone()
+    hi = a[..., :cap].clone()
+    lo[:, :, 0] -= shift * lo[:, :, 3]
+    hi[:, :, 0] += shift * hi[:, :, 3]
+    return torch.cat([lo, a, hi], dim=-1).contiguous()
+
+
+def absolute(a, cap, cell_len):
+    """Cell-local planes -> absolute coordinates (valid slots only)."""
+    nz, ny, _, W = a.shape
+    dt, dev = a.dtype, a.device
+    out = a.clone()
+    w = a[:, :, 3]
+    out[:, :, 0] += (torch.arange(W, device=dev) // cap).to(dt) * cell_len[0] * w
+    out[:, :, 1] += (torch.arange(ny, device=dev).to(dt)
+                     * cell_len[1])[None, :, None] * w
+    out[:, :, 2] += (torch.arange(nz, device=dev).to(dt)
+                     * cell_len[2])[:, None, None] * w
+    return out
+
+
+def phase_k3(device):
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import (
+        lj_cell_forces_cw, lj_cell_forces_cw_reference)
+
+    for dtype, lim in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        for cap in (32, 64):
+            r_i, cl, lj = cut_planes(cap, dtype, device)
+            nd = r_i.shape[0]
+            # explicit z halo rows: the inner rows against the whole cut,
+            # whose first and last row are then no periodic images
+            cases = {
+                "plain": (r_i, None, (nd,) * 3, {}),
+                "vi": (r_i, None, (nd,) * 3, dict(compute_vi=True)),
+                "z_halo": (r_i[1:-1].contiguous(), r_i, (nd, nd, nd - 2),
+                           dict(z_halo=True)),
+                "ny2": (sub_block(r_i, cap, 5, 2, 1), None, (5, 2, 1), {}),
+            }
+            errs = {}
+            for tag, (ri, rj, dims, extra) in cases.items():
+                kw = dict(dims=dims, cap=cap, cell_len=cl, **lj, **extra)
+                errs[tag] = max(rel_errors(
+                    lj_cell_forces_cw(ri, rj, **kw),
+                    lj_cell_forces_cw_reference(ri, rj, **kw)))
+            say("K3", dtype=str(dtype).split(".")[1], cap=cap, grid=(nd,) * 3,
+                rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
+                limit=lim)
+            check(max(errs.values()) <= lim,
+                  f"K3 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
+    say("K3", launches=lj_cell_forces_cw.launches)
+
+
+def phase_k4(device):
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import (
+        lj_cell_forces_row, lj_cell_forces_row_reference)
+
+    f64_abs = {}
+    for dtype, lim in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for cap in (32, 64):
+            r_i, cl, lj = cut_planes(cap, dtype, device)
+            nd = r_i.shape[0]
+            dims = (nd,) * 3
+            box = tuple(c * nd for c in cl)
+            r_a = absolute(r_i, cap, cl)
+            # y and z halo rows in absolute coordinates: the periodic
+            # images, put where an exchange would put them
+            rows = torch.cat([r_a[:, -1:], r_a, r_a[:, :1]], dim=1)
+            rows[:, 0, 1] -= box[1] * rows[:, 0, 3]
+            rows[:, -1, 1] += box[1] * rows[:, -1, 3]
+            rows = torch.cat([rows[-1:], rows, rows[:1]], dim=0)
+            rows[0, :, 2] -= box[2] * rows[0, :, 3]
+            rows[-1, :, 2] += box[2] * rows[-1, :, 3]
+            r2 = sub_block(r_i, cap, 2, 3, 3)
+            box2 = (2 * cl[0], 3 * cl[1], 3 * cl[2])
+            cases = {
+                "local": (r_i, x_halo(r_i, nd, cap), dims, box,
+                          dict(local_coords=True)),
+                "absolute": (r_a, x_halo(r_a, nd, cap, box[0]), dims, box, {}),
+                "yz_halo": (r_a, x_halo(rows, nd, cap, box[0]), dims, box,
+                            dict(z_halo=True, y_halo=True)),
+                "nx2": (r2, x_halo(r2, 2, cap), (2, 3, 3), box2,
+                        dict(local_coords=True)),
+            }
+            errs, outs = {}, {}
+            for tag, (ri, rj, dm, bx, extra) in cases.items():
+                kw = dict(dims=dm, cap=cap, box=bx, **lj, **extra)
+                outs[tag] = lj_cell_forces_row(ri, rj, **kw)
+                errs[tag] = max(rel_errors(
+                    outs[tag], lj_cell_forces_row_reference(ri, rj, **kw)))
+            # the three full-grid views describe the same periodic fluid
+            errs["yz_halo=absolute"] = max(rel_errors(outs["yz_halo"],
+                                                     outs["absolute"]))
+            if dtype == torch.float64:
+                f64_abs[cap] = outs["absolute"]
+            else:
+                # f32 absolute coordinates against the f64 result: at
+                # |r| ~ 35 an f32 coordinate carries an ulp of 4e-6, and a
+                # pair that changes side of the cutoff moves a force by
+                # the unshifted LJ's step at rc (0.039 eps/sigma), about
+                # 1e-3 of max|F| here
+                f64 = tuple(t.to(dtype) for t in f64_abs[cap])
+                errs["absolute_f32_vs_f64"] = max(rel_errors(outs["absolute"], f64))
+            say("K4", dtype=str(dtype).split(".")[1], cap=cap, grid=dims,
+                rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
+                limit=lim)
+            loose = errs.pop("absolute_f32_vs_f64", 0.0)
+            check(max(errs.values()) <= lim and loose <= 5e-3,
+                  f"K4 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
+    say("K4", launches=lj_cell_forces_row.launches)
+
+
+def scene_config(box):
+    from ls1_mardyn_tpu_torch.io.xml_config import XMLConfig
+
+    return XMLConfig(timestep=DT, temperature=TEMP, box=np.asarray(box, float),
+                     cutoff=RC, lj_cutoff=RC, ensemble_type="NVT")
+
+
+def make_sim(tiles, device, dtype=torch.float32, force_mode="auto"):
     """MDSimulation on the seed tiled tiles^3 times (bench.py:250-259
     settings)."""
     from ls1_mardyn_tpu_torch.driver import MDSimulation
     from ls1_mardyn_tpu_torch.io.generators import cubic_grid
-    from ls1_mardyn_tpu_torch.io.xml_config import XMLConfig
 
     r, v, L = seed_state(tiles)
     data = cubic_grid(len(r), [L, L, L], TEMP, seed=7)
     data.r, data.v = r, v
-    cfg = XMLConfig(timestep=DT, temperature=TEMP,
-                    box=np.asarray(data.box, float), cutoff=RC,
-                    lj_cutoff=RC, ensemble_type="NVT")
-    return MDSimulation(cfg, dtype=dtype, phase_space_data=data, device=device)
+    return MDSimulation(scene_config(data.box), dtype=dtype,
+                        phase_space_data=data, device=device,
+                        force_mode=force_mode)
 
 
-def phase_small(device):
-    """The whole driver on the card against the same driver on the CPU
-    (plain versions), f64, on a small lattice scene."""
-    from ls1_mardyn_tpu_torch.driver import MDSimulation
-    from ls1_mardyn_tpu_torch.io.xml_config import XMLConfig
+def lattice_scene(n, rho, kind, seed=3):
+    """A cubic-lattice start of n molecules: "1clj", or "2cljq" (two LJ
+    sites 0.4 sigma apart and an axial quadrupole) with orientations
+    drawn from `seed`."""
     from ls1_mardyn_tpu_torch.io.generators import cubic_grid
+    from ls1_mardyn_tpu_torch.models.components import Component
 
-    n, L = 1024, (1024 / 0.6) ** (1 / 3)
+    L = (n / rho) ** (1 / 3)
+    c = Component(cid=0)
+    if kind == "1clj":
+        c.add_ljcenter(0.0, 0.0, 0.0, 1.0, 1.0, 1.0, RC, False)
+    else:
+        c.add_ljcenter(0.0, 0.0, -0.2, 0.5, 1.0, 1.0, RC, True)
+        c.add_ljcenter(0.0, 0.0, 0.2, 0.5, 1.0, 1.0, RC, True)
+        c.add_quadrupole(0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 1.2)
+    data = cubic_grid(n, [L, L, L], TEMP, components=[c], seed=seed)
+    if kind != "1clj":
+        q = np.random.default_rng(seed).normal(size=(len(data.mid), 4))
+        data.q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    return data, L
+
+
+def compare_devices(phase, build, device, keys):
+    """Run build(dev) for 20 steps on the card and on the CPU (plain
+    versions), f64, and hold the results together."""
     out = {}
     for dev in (device, "cpu"):
-        data = cubic_grid(n, [L, L, L], TEMP, seed=3)
-        cfg = XMLConfig(timestep=DT, temperature=TEMP, box=np.full(3, L),
-                        cutoff=RC, lj_cutoff=RC, ensemble_type="NVT")
-        sim = MDSimulation(cfg, dtype=torch.float64, phase_space_data=data,
-                           device=dev)
+        sim, L = build(dev)
         gv = sim.run(steps=20, print_every=0)
         mol = sim.molecules()
         o = torch.argsort(mol.mid.cpu())
-        out[dev] = (gv, mol.r.cpu()[o].numpy(), mol.v.cpu()[o].numpy())
-    (ga, ra, va), (gb, rb, vb) = out[device], out["cpu"]
+        out[dev] = (gv, {k: getattr(mol, k).cpu()[o].numpy() for k in keys},
+                    type(sim.engine).__name__)
+    (ga, ma, eng), (gb, mb, _) = out[device], out["cpu"]
     rel = {k: abs(float(getattr(ga, k)) / float(getattr(gb, k)) - 1)
            for k in ("temperature", "pressure", "upot")}
-    dr = ra - rb
-    dr -= L * np.round(dr / L)
-    er, ev = float(np.abs(dr).max()), float(np.abs(va - vb).max())
-    say("small", n=n, rel=json.dumps({k: f"{x:.2e}" for k, x in rel.items()}),
-        max_dr=f"{er:.2e}", max_dv=f"{ev:.2e}")
-    check(max(rel.values()) <= 1e-9 and er <= 1e-9 and ev <= 1e-9,
-          "the CUDA driver disagrees with the CPU driver")
+    err = {}
+    for k in keys:
+        d = ma[k] - mb[k]
+        if k == "r":
+            d -= L * np.round(d / L)
+        err[k] = float(np.abs(d).max())
+    say(phase, engine=eng, n=len(ma["r"]),
+        rel=json.dumps({k: f"{x:.2e}" for k, x in rel.items()}),
+        max_abs=json.dumps({k: f"{x:.2e}" for k, x in err.items()}))
+    check(max(rel.values()) <= 1e-9 and max(err.values()) <= 1e-9,
+          f"{phase}: the CUDA driver disagrees with the CPU driver")
+
+
+def phase_small(device):
+    """The RMM driver on the card against the same driver on the CPU
+    (plain versions), f64, on a small lattice scene."""
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+
+    def build(dev):
+        data, L = lattice_scene(1024, 0.6, "1clj")
+        return MDSimulation(scene_config(data.box), dtype=torch.float64,
+                            phase_space_data=data, device=dev), L
+
+    compare_devices("small", build, device, ("r", "v"))
+
+
+def phase_general_small(device):
+    """The general engine on the card against the CPU: the 1CLJ kernel
+    path and the plain multi-site traversal.  The traversal adds pair
+    terms with index_add_, in no fixed order on the card: agreement to
+    rounding over 20 steps, well inside 1e-9."""
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+    from ls1_mardyn_tpu_torch.ops.lj_path import CudaLJPath
+
+    for mode, kind, n, rho in (("pallas", "1clj", 1000, 0.6),
+                               ("cells", "2cljq", 900, 0.45)):
+        def build(dev):
+            data, L = lattice_scene(n, rho, kind)
+            return MDSimulation(scene_config(data.box), dtype=torch.float64,
+                                phase_space_data=data, device=dev,
+                                force_mode=mode), L
+
+        sim, _ = build("cpu")
+        check((mode == "pallas") == isinstance(sim.engine._force_fn, CudaLJPath),
+              f"general-small/{mode}: not the force path it names")
+        compare_devices(f"general-small/{mode}", build, device,
+                        ("r", "v", "q", "L"))
+
+
+def timed_window(sim, steps):
+    """ms per step of sim.run(steps): host clock around work that ends
+    in a synchronize."""
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gv = sim.run(steps=steps, print_every=0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t1) / steps * 1e3, gv
+
+
+def check_globals(phase, gv, n):
+    T, p, U = float(gv.temperature), float(gv.pressure), float(gv.upot)
+    check(all(np.isfinite([T, p, U])), f"{phase}: non-finite T/p/Upot")
+    check(abs(T / TEMP - 1) <= 0.1, f"{phase}: T={T} not within 10% of {TEMP}")
+    check(int(float(gv.n)) == n, f"{phase}: lost molecules")
+    return T, p, U
 
 
 def phase_main(device, smi):
     from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces
     from ls1_mardyn_tpu_torch.ops.cuda_rebin import rebin_shift
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     lj_cell_forces.launches = 0
     rebin_shift.launches = 0
@@ -255,79 +499,265 @@ def phase_main(device, smi):
     eng.prepare_start()
     torch.cuda.synchronize()
     t_prep = time.perf_counter() - t0 - t_build
-    steps = 2 * rsim.rebin_every + 2
-    t1 = time.perf_counter()
-    gv = sim.run(steps=steps, print_every=0)
-    torch.cuda.synchronize()
-    t_run = time.perf_counter() - t1
+    steps = rsim.rebin_every + 2
+    ms0, gv = timed_window(sim, steps)
     launches = {"K1": lj_cell_forces.launches, "K2": rebin_shift.launches}
-    T, p, U = float(gv.temperature), float(gv.pressure), float(gv.upot)
+    T, p, U = check_globals("main", gv, N_MAIN)
     say("main", n=int(float(gv.n)), grid=rsim.spec.dims, cap=rsim.spec.cap,
         rebin_every=rsim.rebin_every, steps=steps, T=f"{T:.6f}",
         p=f"{p:.6f}", upot_per_mol=f"{U / N_MAIN:.6f}",
         rebin_fallbacks=rsim.n_rebin_fallback,
         construct_s=round(t_build, 2), prepare_start_s=round(t_prep, 2),
-        run_s=round(t_run, 2), launches=json.dumps(launches))
-    check(all(np.isfinite([T, p, U])), "main path: non-finite T/p/Upot")
-    check(abs(T / TEMP - 1) <= 0.1, f"main path: T={T} not within 10% of {TEMP}")
-    check(int(float(gv.n)) == N_MAIN, "main path lost molecules")
-    check(launches["K1"] > 0 and launches["K2"] >= 6,
+        run_s=round(ms0 * steps / 1e3, 2), launches=json.dumps(launches))
+    check(launches["K1"] == steps + 1 and launches["K2"] >= 3,
           f"main path did not run both kernels ({launches})")
-    # steady-state window: whole rebin periods, host clock + sync
-    win = 2 * rsim.rebin_every
-    sim.run(steps=2, print_every=0)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    sim.run(steps=win, print_every=0)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t1) / win * 1e3
+    # steady-state window: one whole rebin period
+    win = rsim.rebin_every
+    ms, _ = timed_window(sim, win)
     say("main", window_steps=win, ms_per_step=f"{ms:.3f}",
-        updates_per_s=f"{N_MAIN / ms * 1e3:.4e}", gpu=repr(smi))
+        updates_per_s=f"{N_MAIN / ms * 1e3:.4e}",
+        peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        gpu=repr(smi))
     return sim, launches
 
 
-def phase_times(sim, smi):
-    from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces, lj_cell_forces_reference
-    from ls1_mardyn_tpu_torch.ops.cuda_rebin import rebin_shift, rebin_shift_reference
+def phase_general(device, smi):
+    """This slice's path at full width: the general engine with the
+    1CLJ kernel path on the main path's scene."""
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import (
+        lj_cell_forces_cw, lj_cell_forces_row)
+    from ls1_mardyn_tpu_torch.ops.lj_path import CudaLJPath
+    from ls1_mardyn_tpu_torch.simulation import SingleChipSimulation
 
-    rsim = sim.engine.sim
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lj_cell_forces_cw.launches = 0
+    lj_cell_forces_row.launches = 0
+    sim = make_sim(2, device, force_mode="pallas")
+    eng = sim.engine
+    path = eng._force_fn
+    check(isinstance(eng, SingleChipSimulation) and isinstance(path, CudaLJPath)
+          and path.cw, "general path: engine or force path")
+    t_build = time.perf_counter() - t0
+    eng.prepare_start()
+    warm, win = 4, 16
+    ms0, _ = timed_window(sim, warm)
+    ms, gv = timed_window(sim, win)
+    k3 = lj_cell_forces_cw.launches
+    T, p, U = check_globals("general", gv, N_MAIN)
+    check(sim.engine is eng, "general path: cell capacity overflow (re-spec)")
+    check(k3 == 1 + warm + win and lj_cell_forces_row.launches == 0,
+          f"general path: K3 launched {k3} times in {warm + win} steps")
+    say("general", n=int(float(gv.n)), grid=path.spec.dims, cap=path.spec.cap,
+        T=f"{T:.6f}", p=f"{p:.6f}", upot_per_mol=f"{U / N_MAIN:.6f}",
+        construct_s=round(t_build, 2), warm_ms_per_step=f"{ms0:.3f}",
+        window_steps=win, ms_per_step=f"{ms:.3f}",
+        updates_per_s=f"{N_MAIN / ms * 1e3:.4e}",
+        peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        gpu=repr(smi))
+    # the same engine through the row kernel
+    path.cw = False
+    ms4, gv = timed_window(sim, 3)
+    path.cw = True
+    k4 = lj_cell_forces_row.launches
+    check_globals("general/K4", gv, N_MAIN)
+    check(k4 == 3 and lj_cell_forces_cw.launches == k3,
+          f"general path with cw off: K4 launched {k4} times in 3 steps")
+    say("general", cw="off", steps=3, ms_per_step=f"{ms4:.3f}",
+        launches=json.dumps({"K3": k3, "K4": k4}))
+    return sim, {"K3": k3, "K4": k4}
+
+
+def phase_multisite(device, smi):
+    """Rigid multi-site molecules alive on the card: a 2CLJ+quadrupole
+    fluid through the plain general traversal.  No kernel and no
+    yardstick; it gives the multi-site kernels their later plain time."""
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+    from ls1_mardyn_tpu_torch.ops.cellforce import default_cell_chunk
+
+    torch.cuda.reset_peak_memory_stats()
+    data, L = lattice_scene(97336, 0.45, "2cljq")
+    sim = MDSimulation(scene_config(data.box), phase_space_data=data,
+                       device=device, force_mode="cells")
+    eng = sim.engine
+    eng.prepare_start()
+    steps = 10
+    ms, gv = timed_window(sim, steps)
+    n = len(data.mid)
+    T, p, U = float(gv.temperature), float(gv.pressure), float(gv.upot)
+    # the start has no angular momentum, so the rotational share of T is
+    # still filling: hold the translational temperature to the target
+    T_trans = float(gv.summv2) / (3 * n)
+    check(all(np.isfinite([T, p, U])) and int(float(gv.n)) == n,
+          "multisite: non-finite T/p/Upot or lost molecules")
+    check(abs(T_trans / TEMP - 1) <= 0.1,
+          f"multisite: T_trans={T_trans} not within 10% of {TEMP}")
+    mol = sim.molecules()
+    qn = float(((mol.q ** 2).sum(-1) - 1).abs().max())
+    turned = float((mol.q - torch.as_tensor(data.q, dtype=mol.q.dtype,
+                                            device=mol.q.device)).abs().max())
+    say("multisite", n=n, grid=eng.spec.dims, cap=eng.spec.cap,
+        cell_chunk=default_cell_chunk(eng.spec), steps=steps, T=f"{T:.6f}",
+        T_trans=f"{T_trans:.6f}", sum_iw2=f"{float(gv.sum_iw2):.4e}",
+        p=f"{p:.6f}", upot_per_mol=f"{U / n:.6f}", max_q_norm_err=f"{qn:.2e}",
+        max_q_change=f"{turned:.3f}", ms_per_step=f"{ms:.1f}",
+        peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        gpu=repr(smi))
+    check(qn <= 1e-5 and turned > 1e-3 and bool(torch.isfinite(mol.L).all()),
+          "multisite: quaternions not normalized or not rotating")
+
+
+def lj_bound(r_i, dims, cap, lj, out_planes, j_elems):
+    """Least time the card could take for an LJ cell-force call on these
+    inputs: bytes (inputs read once, the force planes written once)
+    over the memory rate, against the operations this data needs over
+    the f32 peak.  The function needs each UNORDERED pair once (Newton's
+    third law; the kernels evaluate every pair from both sides, which is
+    their choice and not the function's): 8 operations per candidate
+    pair of two different occupied slots in the same or neighbouring
+    cells (3 subtractions, 3 products, 2 sums for r^2), and 25 more per
+    pair inside the cutoff (22 for the LJ term and the sums on i, 3 for
+    the reaction on j).  The pairs inside the cutoff are counted by a
+    launch with eps24 = 0 and shift6 = 1, whose halved u6 is the
+    unordered count."""
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces_cw
+
+    nx, ny, nz = dims
+    occ = (r_i[:, :, 3] > 0.5).reshape(nz, ny, nx, cap).sum(-1).double()
+    nb = sum(torch.roll(occ, (dz, dy, dx), (0, 1, 2))
+             for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    # ordered slot pairs incl. each slot with itself -> unordered, no self
+    candidates = (float((occ * nb).sum()) - float(occ.sum())) / 2.0
+    _, u6, _ = lj_cell_forces_cw(
+        r_i, dims=dims, cap=cap,
+        cell_len=lj["cell_len"], eps24=0.0, sig2=0.0, shift6=1.0, rc2=lj["rc2"])
+    inside = float(u6)
+    size = r_i.element_size()
+    t_bytes = (r_i.numel() + j_elems + out_planes * r_i.numel() // 4) * size \
+        / PEAK_BYTES * 1e3
+    t_ops = (8 * candidates + 25 * inside) / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "candidates": candidates, "inside": inside}
+
+
+def phase_times(sim_rmm, sim_gen, smi):
+    """Each kernel beside its plain version at the shape its path gave
+    it, with the kernel's bound; no single PyTorch call computes an LJ
+    cell-force sum or the shift-merge rebin, so library_ms is null.
+    (The paths' launch counts were read before this phase.)"""
+    from ls1_mardyn_tpu_torch.ops import cuda_lj, cuda_rebin
+
+    out = {}
+
+    def lj_times(key, fn, ref, args, kw, rel_lim=1e-5):
+        res = {}
+        for macro in (False, True):
+            res[macro] = (
+                cuda_ms(lambda: fn(*args, compute_macro=macro, **kw), 10),
+                cuda_ms(lambda: ref(*args, compute_macro=macro, **kw), 1))
+        a, b = fn(*args, **kw), ref(*args, **kw)
+        err = float((a[0] - b[0]).abs().max())
+        rel = max(rel_errors(a, b))
+        check(rel <= rel_lim, f"{key} at its path's shape: rel err {rel}")
+        return res, err, rel
+
+    # K1: the RMM state's planes, read in place
+    rsim = sim_rmm.engine.sim
     st = rsim.state
     r4 = st.planes[:, :, :4, :]
-    kw = dict(dims=rsim.spec.dims, cap=rsim.spec.cap, cell_len=rsim.cell_len,
-              eps24=rsim.eps24, sig2=rsim.sig2, shift6=rsim.shift6, rc2=rsim.rc2)
-    res = {}
-    for macro in (False, True):
-        k_ms = cuda_ms(lambda: lj_cell_forces(r4, compute_macro=macro, **kw), 10)
-        p_ms = cuda_ms(lambda: lj_cell_forces_reference(r4, compute_macro=macro, **kw), 1)
-        res[macro] = (k_ms, p_ms)
-    fa, ua, va = lj_cell_forces(r4, **kw)
-    fb, ub, vb = lj_cell_forces_reference(r4, **kw)
-    k1_err = float((fa - fb).abs().max())
-    k1_rel = k1_err / float(fb.abs().max())
-    check(k1_rel <= 1e-5, f"K1 at the main-path shape: rel err {k1_rel}")
-    pairs = 27 * rsim.spec.cap ** 2 * rsim.spec.n_cells
-    say("times", kernel="K1", grid=rsim.spec.dims, cap=rsim.spec.cap,
-        pair_lanes=pairs, ms_fast=f"{res[False][0]:.3f}",
-        plain_ms_fast=f"{res[False][1]:.3f}", ms_macro=f"{res[True][0]:.3f}",
-        plain_ms_macro=f"{res[True][1]:.3f}",
+    dims, cap = rsim.spec.dims, rsim.spec.cap
+    lj = dict(eps24=rsim.eps24, sig2=rsim.sig2, shift6=rsim.shift6, rc2=rsim.rc2)
+    res, err, rel = lj_times("K1", cuda_lj.lj_cell_forces,
+                             cuda_lj.lj_cell_forces_reference, (r4,),
+                             dict(dims=dims, cap=cap, cell_len=rsim.cell_len, **lj))
+    bound = lj_bound(r4.contiguous(), dims, cap,
+                     dict(cell_len=rsim.cell_len, rc2=rsim.rc2), 3, 0)
+    pairs = 27 * cap ** 2 * rsim.spec.n_cells
+    say("times", kernel="K1", grid=dims, cap=cap, pair_lanes=pairs,
+        ms_fast=f"{res[False][0]:.3f}", plain_ms_fast=f"{res[False][1]:.3f}",
+        ms_macro=f"{res[True][0]:.3f}", plain_ms_macro=f"{res[True][1]:.3f}",
         pair_lanes_per_s=f"{pairs / res[False][0] * 1e3:.4e}",
-        max_abs_err=f"{k1_err:.3e}", rel_err=f"{k1_rel:.3e}", gpu=repr(smi))
+        max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
+        bound=json.dumps(bound), gpu=repr(smi))
+    out["K1"] = dict(max_abs_err=err, ms=res[False][0], plain_ms=res[False][1],
+                     bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+
+    # K2: one read and one write of the 11-column stack is what the
+    # function must move; its three stages move three times that
     big = rsim._fold(st)
-    kw2 = dict(dims=rsim.spec.dims, cap=rsim.spec.cap, cell_len=rsim.cell_len,
-               sentinel=rsim.sentinel)
-    k2_ms = cuda_ms(lambda: rebin_shift(big, **kw2), 10)
-    p2_ms = cuda_ms(lambda: rebin_shift_reference(big, **kw2), 2)
-    oa, _ = rebin_shift(big, **kw2)
-    ob, _ = rebin_shift_reference(big, **kw2)
+    kw2 = dict(dims=dims, cap=cap, cell_len=rsim.cell_len, sentinel=rsim.sentinel)
+    k2_ms = cuda_ms(lambda: cuda_rebin.rebin_shift(big, **kw2), 10)
+    p2_ms = cuda_ms(lambda: cuda_rebin.rebin_shift_reference(big, **kw2), 2)
+    oa, _ = cuda_rebin.rebin_shift(big, **kw2)
+    ob, _ = cuda_rebin.rebin_shift_reference(big, **kw2)
     k2_err = float((oa - ob).abs().max())
     check(k2_err == 0.0, "K2 at the main-path shape is not bit-identical")
-    # one read and one write of the 11-column stack per stage
-    nbytes = 3 * 2 * big.numel() * big.element_size()
+    nbytes = 2 * big.numel() * big.element_size()
     say("times", kernel="K2", ms=f"{k2_ms:.3f}", plain_ms=f"{p2_ms:.3f}",
-        dram_bytes_min=nbytes, GBps=f"{nbytes / k2_ms / 1e6:.1f}",
-        max_abs_err=k2_err, gpu=repr(smi))
-    return {"K1": (k1_err, res[False][0], res[False][1]),
-            "K2": (k2_err, k2_ms, p2_ms)}
+        bytes_in_and_out=nbytes, bytes_of_3_stages=3 * nbytes,
+        GBps_of_3_stages=f"{3 * nbytes / k2_ms / 1e6:.1f}",
+        bound_ms=f"{nbytes / PEAK_BYTES * 1e3:.4f}", max_abs_err=k2_err,
+        gpu=repr(smi))
+    out["K2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=p2_ms,
+                     bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes")
+
+    # K3, K4: the layout the general path gathers from its state; the
+    # path computes u6/virial every step, so `ms` is the macro time
+    eng = sim_gen.engine
+    path = eng._force_fn
+    r_i, _ = path.layout(eng.mol)
+    r_j = path.x_halo(r_i)
+    dims, cap = path.spec.dims, path.spec.cap
+    lj = dict(eps24=path.eps24, sig2=path.sig2, shift6=path.shift6, rc2=path.rc2)
+    pairs = 27 * cap ** 2 * path.spec.n_cells
+    for key, fn, ref, args, kw, jel in (
+        ("K3", cuda_lj.lj_cell_forces_cw, cuda_lj.lj_cell_forces_cw_reference,
+         (r_i,), dict(dims=dims, cap=cap, cell_len=path.spec.cell_len, **lj), 0),
+        ("K4", cuda_lj.lj_cell_forces_row, cuda_lj.lj_cell_forces_row_reference,
+         (r_i, r_j), dict(dims=dims, cap=cap, box=path.spec.box,
+                          local_coords=True, **lj), r_j.numel()),
+    ):
+        res, err, rel = lj_times(key, fn, ref, args, kw)
+        bound = lj_bound(r_i, dims, cap,
+                         dict(cell_len=path.spec.cell_len, rc2=path.rc2), 3, jel)
+        extra = {}
+        if key == "K3":
+            extra["ms_macro_vi"] = "%.3f" % cuda_ms(
+                lambda: fn(*args, compute_vi=True, **kw), 10)
+        say("times", kernel=key, grid=dims, cap=cap, pair_lanes=pairs,
+            ms_fast=f"{res[False][0]:.3f}", plain_ms_fast=f"{res[False][1]:.3f}",
+            ms_macro=f"{res[True][0]:.3f}", plain_ms_macro=f"{res[True][1]:.3f}",
+            pair_lanes_per_s=f"{pairs / res[False][0] * 1e3:.4e}",
+            max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
+            bound=json.dumps(bound), gpu=repr(smi), **extra)
+        out[key] = dict(max_abs_err=err, ms=res[True][0], plain_ms=res[True][1],
+                        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+    # K3 and K4 on K1's grid: held against their plain versions there
+    # too, then timed for the comparison with K1
+    dims1, cap1 = rsim.spec.dims, rsim.spec.cap
+    r1 = r4.contiguous()
+    kw1 = dict(dims=dims1, cap=cap1, eps24=rsim.eps24, sig2=rsim.sig2,
+               shift6=rsim.shift6, rc2=rsim.rc2)
+    nx1 = dims1[0]
+    rj1 = torch.cat([r1[..., (nx1 - 1) * cap1:], r1, r1[..., :cap1]], -1)
+    rel3 = max(rel_errors(
+        cuda_lj.lj_cell_forces_cw(r1, cell_len=rsim.cell_len, **kw1),
+        cuda_lj.lj_cell_forces_cw_reference(r1, cell_len=rsim.cell_len, **kw1)))
+    kw4 = dict(box=rsim.spec.box, local_coords=True, **kw1)
+    rel4 = max(rel_errors(cuda_lj.lj_cell_forces_row(r1, rj1, **kw4),
+                          cuda_lj.lj_cell_forces_row_reference(r1, rj1, **kw4)))
+    check(rel3 <= 1e-5 and rel4 <= 1e-5,
+          f"K3/K4 on grid {dims1}: rel err {rel3}, {rel4}")
+    kw1["compute_macro"] = False
+    say("times", on_grid=dims1, cap=cap1, K3_rel_err=f"{rel3:.3e}",
+        K4_rel_err=f"{rel4:.3e}", limit=1e-5,
+        K1_ms=f"{out['K1']['ms']:.3f}",
+        K3_ms="%.3f" % cuda_ms(lambda: cuda_lj.lj_cell_forces_cw(
+            r1, cell_len=rsim.cell_len, **kw1), 10),
+        K4_ms="%.3f" % cuda_ms(lambda: cuda_lj.lj_cell_forces_row(
+            r1, rj1, box=rsim.spec.box, local_coords=True, **kw1), 10))
+    return out
 
 
 def main():
@@ -338,17 +768,21 @@ def main():
     phase_build()
     phase_k1(device)
     phase_k2(device)
+    phase_k3(device)
+    phase_k4(device)
     phase_small(device)
-    sim, launches = phase_main(device, smi)
-    times = phase_times(sim, smi)
+    phase_general_small(device)
+    sim_rmm, launches = phase_main(device, smi)
+    sim_gen, launches_gen = phase_general(device, smi)
+    launches.update(launches_gen)
+    phase_multisite(device, smi)
+    times = phase_times(sim_rmm, sim_gen, smi)
     kernels = []
-    for name, src, tpu in (("K1 lj_cell_forces", K1_SRC, K1_TPU),
-                           ("K2 rebin_shift", K2_SRC, K2_TPU)):
-        key = name.split()[0]
-        err, ms, plain = times[key]
+    for key, (name, src, tpu) in KERNELS.items():
+        check(launches[key] > 0, f"{key} was launched by no path")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu, "launches": launches[key],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain})
+                        **times[key], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

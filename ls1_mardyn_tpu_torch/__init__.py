@@ -6,11 +6,15 @@ mirrors its module paths and class names (``driver.MDSimulation``,
 counterpart is found at the same place.  It imports torch and numpy,
 never jax.
 
-Slice 1 covers the single-component 1CLJ NVT main path: XML config ->
-MDSimulation -> RMMEngine -> RMMSimulation, whose force and rebin
-kernels are hand-written CUDA C++ for Hopper (csrc/, built at first
-use by ops/_build.py).  On a CPU tensor every kernel wrapper runs its
-plain PyTorch version instead.
+Two engines sit under ``driver.MDSimulation``: the RMM dense engine
+for single-component 1CLJ scenes (RMMEngine -> RMMSimulation) and the
+general single-device engine (``simulation.SingleChipSimulation``:
+rigid-body integrator, all seven site-site interactions, component-wise,
+undirected and region thermostats) with the 1CLJ cell kernels, the N^2
+oracle or the plain multi-site cell traversal as its force path.  The
+force and rebin kernels are hand-written CUDA C++ for Hopper (csrc/,
+built at first use by ops/_build.py).  On a CPU tensor every kernel
+wrapper runs its plain PyTorch version instead.
 """
 
 __version__ = "0.1.0"

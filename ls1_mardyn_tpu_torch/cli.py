@@ -2,8 +2,8 @@
 
 Mirrors the reference binary's UX (MarDyn.cpp:35-57, 134-279):
 ``python -m ls1_mardyn_tpu_torch [options] <config.xml>`` with
---steps/-N, --final-checkpoint, --precision and --print-every, plus
---device (default cuda; the CPU only on request).
+--steps/-N, --final-checkpoint, --precision, --force-mode and
+--print-every, plus --device (default cuda; the CPU only on request).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ def build_parser():
     p = argparse.ArgumentParser(
         prog="ls1-mardyn-tpu-torch",
         description="Molecular dynamics on PyTorch + CUDA "
-                    "(ls1-MarDyn capability set, 1CLJ slice)",
+                    "(ls1-MarDyn capability set)",
     )
     p.add_argument("config", nargs="?", help="XML config file")
     p.add_argument("-N", "--steps", type=int, default=None,
@@ -29,6 +29,11 @@ def build_parser():
                    help="torch device (default cuda; fails when CUDA is "
                         "absent unless --device cpu is given)")
     p.add_argument("--precision", choices=("f32", "f64"), default="f32")
+    p.add_argument("--force-mode", choices=("auto", "pallas", "cells", "rmm"),
+                   default="auto",
+                   help="auto: RMM engine for 1CLJ scenes, else the general "
+                        "engine; pallas: 1CLJ cell kernels on the general "
+                        "engine; cells: plain general multi-site traversal")
     p.add_argument("--print-every", type=int, default=100)
     return p
 
@@ -45,7 +50,8 @@ def main(argv=None):
     from ls1_mardyn_tpu_torch.driver import MDSimulation
 
     dtype = torch.float64 if args.precision == "f64" else torch.float32
-    sim = MDSimulation.from_xml(args.config, dtype=dtype, device=args.device)
+    sim = MDSimulation.from_xml(args.config, dtype=dtype, device=args.device,
+                                force_mode=args.force_mode)
     sim.run(
         steps=args.steps,
         print_every=args.print_every,

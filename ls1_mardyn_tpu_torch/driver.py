@@ -1,19 +1,27 @@
 """Top-level MD driver: XML config -> scene -> step loop -> plugins,
 observables and checkpoints (the counterpart of
-ls1_mardyn_tpu/driver.py: MDSimulation, its 1CLJ branch).
+ls1_mardyn_tpu/driver.py: MDSimulation).
 
 The reference's Simulation class and main loop (Simulation.cpp:
 initConfigXML :675-750, prepare_start :764-918, simulate :920-1202)
 with the device executing each step and the host orchestrating
 plugins, logging, checkpoints and timers.
 
-Slice 1 runs single-component 1CLJ scenes on the RMM dense engine
-(rmm_engine.RMMEngine).  Every scene outside that slice raises
-NotImplementedError naming the ROADMAP slice that brings it.
+Two engines: single-component 1CLJ scenes run the RMM dense engine
+(rmm_engine.RMMEngine, kernels K1/K2); everything else, and every scene
+under force_mode "pallas" or "cells", runs the general single-device
+engine (simulation.SingleChipSimulation) with one of three force paths:
+the 1CLJ cell kernels K3/K4 (ops/lj_path.CudaLJPath), the N^2 oracle
+sweep for small scenes with huge cutoffs, or the plain general
+multi-site cell traversal.  A scene that the JAX driver would hand to
+its multi-site kernels, and the features of later slices (plugins,
+muVT, long-range solvers), raise NotImplementedError naming the ROADMAP
+slice that brings them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -25,14 +33,27 @@ from ls1_mardyn_tpu_torch.io.generators import cubic_grid
 from ls1_mardyn_tpu_torch.io.xml_config import XMLConfig, read_xml_config
 from ls1_mardyn_tpu_torch.models.components import ComponentTable
 from ls1_mardyn_tpu_torch.models.interaction import PairParams
+from ls1_mardyn_tpu_torch.models.oracle import compute_forces_n2
 from ls1_mardyn_tpu_torch.ops.cells import CellGridSpec, adaptive_z_edges
+from ls1_mardyn_tpu_torch.ops.lj_path import CudaLJPath
 from ls1_mardyn_tpu_torch.ops.lrc import HomogeneousLRC, NoLRC
 from ls1_mardyn_tpu_torch.ops.rmm import CellCapacityError
+from ls1_mardyn_tpu_torch.ops.thermostat import TemperatureControlRegion
 from ls1_mardyn_tpu_torch.rmm_engine import RMMEngine, pick_rmm_grid
-from ls1_mardyn_tpu_torch.simulation import SimConfig
-from ls1_mardyn_tpu_torch.state import MoleculeState
+from ls1_mardyn_tpu_torch.simulation import SimConfig, SingleChipSimulation
+from ls1_mardyn_tpu_torch.state import MoleculeState, resolve_device
 from ls1_mardyn_tpu_torch.utils.logger import global_log
 from ls1_mardyn_tpu_torch.utils.timers import TimerProfiler
+
+_FORCE_MODES = ("auto", "pallas", "cells", "rmm")
+# scenes up to this size may run the N^2 oracle sweep
+_N2_MAX = 16384
+
+
+def _cap_for(occ: int) -> int:
+    """Cell capacity for a measured max occupancy: 1.5x drift headroom,
+    rounded up to a power of two, at least 32."""
+    return max(32, int(2 ** math.ceil(math.log2(max(1.5 * occ, 8)))))
 
 
 def _out_of_slice(what: str, slice_: str):
@@ -40,18 +61,6 @@ def _out_of_slice(what: str, slice_: str):
         f"{what} is not ported to ls1_mardyn_tpu_torch yet "
         f"(ROADMAP {slice_}); run it with ls1_mardyn_tpu"
     )
-
-
-def resolve_device(device) -> torch.device:
-    """The run's device.  A CUDA device must exist: nothing falls back
-    to the CPU on its own (pass device='cpu' for that)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' (CLI: --device cpu) "
-            "to run on the CPU"
-        )
-    return dev
 
 
 class MDSimulation:
@@ -62,15 +71,23 @@ class MDSimulation:
         self,
         config: XMLConfig,
         dtype: torch.dtype = torch.float32,
-        # auto | rmm: both run the RMM dense engine in this slice
+        # auto | pallas | cells | rmm.  "pallas" keeps the JAX driver's
+        # name for "the 1CLJ cell kernels on the general engine"; here
+        # "cells" always runs the general traversal (the JAX driver
+        # replaces it by its N^2 sweep up to 16384 molecules)
         force_mode: str = "auto",
         cell_cap: int = 0,
         phase_space_data: Optional[PhaseSpaceData] = None,
+        allow_axis_swap: bool = True,
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if force_mode not in ("auto", "rmm"):
-            raise _out_of_slice(f"force_mode={force_mode!r}", "slice 2/3")
+        if force_mode in ("ms_packed", "ms_dense"):
+            raise _out_of_slice(f"force_mode={force_mode!r}", "slice 3")
+        if force_mode not in _FORCE_MODES:
+            raise ValueError(
+                f"force_mode={force_mode!r}: one of {', '.join(_FORCE_MODES)}"
+            )
         self.config = config
         self.dtype = dtype
         self._force_mode = force_mode
@@ -83,15 +100,49 @@ class MDSimulation:
             "SIMULATION_IO",
         ):
             self.timers.register(t)
+        if config.electrostatic_solver == "Ewald":
+            raise _out_of_slice("long-range electrostatics", "slice 4")
+        if config.longrange.lower() == "planar":
+            raise _out_of_slice("the planar long-range correction", "slice 4")
+        if config.ensemble_type == "muVT":
+            raise _out_of_slice("the muVT ensemble", "slice 5")
+        specs = list(config.output_plugins) + list(config.plugins)
+        if specs:
+            raise _out_of_slice(
+                "plugins (%s)" % ", ".join(s.name for s in specs), "slice 6"
+            )
+        if config.cells_in_cutoff > 1:
+            # every traversal reaches +-1 cell only, so cells finer than
+            # the cutoff drop pairs (ROADMAP Queue 3: the JAX package
+            # does; this driver refuses instead)
+            raise ValueError(
+                f"cellsInCutoffRadius={config.cells_in_cutoff}: only 1 is "
+                "supported (the cell traversals reach one cell)"
+            )
 
         data = (
             phase_space_data
             if phase_space_data is not None
             else self._load_phasespace(config)
         )
-        if self._detect_swap_axis(data, config) is not None:
-            raise _out_of_slice(
-                "a vacuum-dominated scene (engine-frame axis swap)", "slice 2"
+        # vacuum-dominated scenes with the inhomogeneity along x or y
+        # (a thin y-slab in an elongated box): the adaptive non-uniform
+        # rows only exist along z, so swap the emptiest axis onto z in
+        # the ENGINE frame.  Only orientation-free scenes (all sites at
+        # the molecular origin, no dipoles/quadrupoles) are swap-safe,
+        # and checkpoints see the original frame (accessors swap back).
+        self._axis_swap = (
+            self._detect_swap_axis(data, config) if allow_axis_swap else None
+        )
+        if self._axis_swap is not None:
+            perm = self._swap_perm()
+            data = dataclasses.replace(
+                data, r=data.r[:, perm], v=data.v[:, perm], L=data.L[:, perm],
+                box=np.asarray(data.box, float)[perm],
+            )
+            global_log.info(
+                "engine frame: axis %d swapped onto z (vacuum-dominated "
+                "scene; adaptive rows are z-native)", self._axis_swap,
             )
         self.phase_space = data
         self.table = ComponentTable(
@@ -102,38 +153,10 @@ class MDSimulation:
             cutoff=config.cutoff,
             lj_cutoff=config.lj_cutoff,
         )
-        if not (
-            self.table.K == 1
-            and len(self.table.components[0].ljcenters) == 1
-            and not self.table.has_electrostatics()
-        ):
-            raise _out_of_slice(
-                "a multi-component, multi-site or polar scene", "slice 3"
-            )
-        if config.electrostatic_solver == "Ewald":
-            raise _out_of_slice("long-range electrostatics", "slice 4")
-        if config.longrange.lower() == "planar":
-            raise _out_of_slice("the planar long-range correction", "slice 4")
-        if config.ensemble_type == "muVT":
-            raise _out_of_slice("the muVT ensemble", "slice 5")
-        if config.temp_control:
-            raise _out_of_slice("TemperatureControl regions", "slice 2")
-        if data.component_thermostats or getattr(data, "undirected_thermostats", None):
-            raise _out_of_slice(
-                "component-wise or undirected thermostats", "slice 2"
-            )
-        specs = list(config.output_plugins) + list(config.plugins)
-        if specs:
-            raise _out_of_slice(
-                "plugins (%s)" % ", ".join(s.name for s in specs), "slice 6"
-            )
-
         self.pp = PairParams.from_table(self.table, dtype=dtype, device=self.device)
         self.box = np.asarray(data.box, float)
         self.volume = float(np.prod(self.box))
         n = len(data.mid)
-        if n == 0:
-            raise _out_of_slice("an empty scene", "slice 2")
         self.mol = MoleculeState.from_numpy(
             r=data.r, v=data.v, q=data.q, L=data.L,
             cid=data.cid, mid=data.mid.astype(np.int32),
@@ -147,99 +170,291 @@ class MDSimulation:
         else:
             self.lrc = NoLRC()
 
-        # container sizing, as the JAX driver measures it: inhomogeneous
-        # scenes that would take non-uniform z rows run the general
-        # engine there, which this slice does not have
+        # container sizing: measure the actual max cell occupancy of the
+        # initial state (mean-density heuristics underestimate clustered
+        # scenes) and leave drift headroom
+        self._z_edges = None
+        cap_floor = cell_cap
         if not cell_cap:
-            dims = np.maximum(
-                1, np.floor(self.box * config.cells_in_cutoff /
-                            config.lj_cutoff).astype(int)
+            cell_cap = self._measure_cell_cap(data, config, n)
+        sim_cfg = self._sim_config(data, config, cell_cap)
+
+        is_1clj = (
+            self.table.K == 1
+            and len(self.table.components[0].ljcenters) == 1
+            and not self.table.has_electrostatics()
+        )
+        if force_mode == "rmm" and not is_1clj:
+            # the RMM engine is the single-component 1CLJ pipeline; any
+            # other scene must not slide onto another path unasked
+            raise ValueError(
+                "force_mode='rmm' needs a single-component 1CLJ scene "
+                "(force_mode='cells' runs this one on the plain general "
+                "traversal)"
             )
-            cl = self.box / dims
-            c3 = np.clip((data.r / cl).astype(int), 0, dims - 1)
-            lin = (c3[:, 2] * dims[1] + c3[:, 1]) * dims[0] + c3[:, 0]
-            max_occ = int(np.bincount(lin).max())
-            mean_occ = n / max(float(np.prod(dims)), 1.0)
-            if dims[2] >= 4 and max_occ > 3.0 * max(mean_occ, 1.0):
-                min_h = max(config.cutoff, config.lj_cutoff)
-                edges = adaptive_z_edges(
-                    data.r, self.box, (dims[0], dims[1]), min_h,
-                    occ_limit=max_occ,
-                )
-                if edges and (len(edges) - 1) <= 0.75 * dims[2]:
-                    cz = np.clip(
-                        np.searchsorted(np.asarray(edges)[1:-1], data.r[:, 2],
-                                        side="right"),
-                        0, len(edges) - 2,
-                    )
-                    lin2 = (cz * dims[1] + c3[:, 1]) * dims[0] + c3[:, 0]
-                    occ2 = int(np.bincount(lin2).max())
-
-                    def _cap(occ):
-                        return max(32, int(2 ** math.ceil(
-                            math.log2(max(1.5 * occ, 8)))))
-
-                    if _cap(occ2) <= _cap(max_occ):
-                        raise _out_of_slice(
-                            "an inhomogeneous scene (adaptive z rows)", "slice 2"
-                        )
-        thermo = config.ensemble_type.upper() == "NVT" and (
-            config.temperature > 0 or bool(data.thermostat_temps)
-        )
-        sim_cfg = SimConfig(
-            dt=config.timestep,
-            target_temperature=config.temperature or data.temperature,
-            thermostat=thermo,
-            cell_cap=cell_cap or 32,
-            upot_corr=self.lrc.upot_corr,
-            virial_corr=self.lrc.virial_corr,
-        )
-        self._plugins = []
+        force_fn = self._pick_force_fn(data, config, cell_cap, n, is_1clj)
 
         # -- RMM dense engine (the VCP1CLJRMM + LeapfrogRMM pipeline,
-        # Simulation.cpp:819-854).  An explicit cell_cap (the adaptive
-        # re-spec passes the doubled one) is the floor of the grid's
-        # capacity; the JAX driver ignores it on this path, so its
-        # re-spec cannot raise the capacity of an RMM grid.
-        rc = config.lj_cutoff
-        dims_r, cap_r = pick_rmm_grid(data.r, self.box, rc, cap=max(32, cell_cap))
-        if dims_r is None:
-            raise _out_of_slice(
-                "a box too small for a >= 4-cell RMM grid", "slice 2"
+        # Simulation.cpp:819-854): single-component 1CLJ scenes run on
+        # the dense cell layout (verlet-skin rebin cadence, kernels
+        # K1/K2); CudaLJPath re-bins the whole system with a global sort
+        # EVERY step.  "auto" upgrades exactly the scenes the cell
+        # kernel path would have taken; "rmm" forces it.  An explicit
+        # cell_cap (the adaptive re-spec passes the doubled one) is the
+        # floor of the grid's capacity.
+        self.engine = None
+        rmm_ok = (
+            is_1clj
+            and not self._z_edges
+            and (
+                force_mode == "rmm"
+                or (force_mode == "auto" and isinstance(force_fn, CudaLJPath))
             )
-        spec_r = CellGridSpec(
-            dims=dims_r, box=tuple(float(b) for b in self.box), cap=cap_r,
+            and sim_cfg.component_thermostat is None
+            and not sim_cfg.undirected_thermostats
+            and not sim_cfg.temp_control_regions
+            and n > 0
         )
-        skin = float(min(spec_r.cell_len)) - rc
-        # drift bound per step: ~4 thermal sigmas of the fastest
-        # molecules (measured from the start velocities)
-        v = np.asarray(data.v, float)
-        vq = float(np.quantile(np.linalg.norm(v, axis=1), 0.9999))
-        drift = max(vq, 1e-9) * config.timestep
-        rebin_every = int(max(1, min(16, skin / (2 * drift))))
-        self.engine = RMMEngine(
-            self.mol, self.pp, self.table, self.box, sim_cfg,
-            spec_r, rebin_every=rebin_every, device=self.device,
-        )
-        global_log.info(
-            "engine: RMM dense fast path on %s, grid %s cap %d "
-            "rebin_every %d", self.device, dims_r, cap_r, rebin_every,
-        )
+        if rmm_ok:
+            rc = config.lj_cutoff
+            dims_r, cap_r = pick_rmm_grid(
+                data.r, self.box, rc, cap=max(32, cap_floor))
+            rmm_ok = dims_r is not None
+        if rmm_ok:
+            spec_r = CellGridSpec(
+                dims=dims_r, box=tuple(float(b) for b in self.box), cap=cap_r,
+            )
+            skin = float(min(spec_r.cell_len)) - rc
+            # drift bound per step: ~4 thermal sigmas of the fastest
+            # molecules (measured from the start velocities)
+            v = np.asarray(data.v, float)
+            vq = float(np.quantile(np.linalg.norm(v, axis=1), 0.9999))
+            drift = max(vq, 1e-9) * config.timestep
+            rebin_every = int(max(1, min(16, skin / (2 * drift))))
+            self.engine = RMMEngine(
+                self.mol, self.pp, self.table, self.box, sim_cfg,
+                spec_r, rebin_every=rebin_every, device=self.device,
+            )
+            global_log.info(
+                "engine: RMM dense fast path on %s, grid %s cap %d "
+                "rebin_every %d", self.device, dims_r, cap_r, rebin_every,
+            )
+        else:
+            self.engine = SingleChipSimulation(
+                self.mol, self.pp, self.box, sim_cfg, force_fn=force_fn,
+            )
+            global_log.info(
+                "engine: general single-device engine on %s, grid %s cap %d",
+                self.device, self.engine.spec.dims, self.engine.spec.cap,
+            )
+        self._plugins = []
         self.last_globals = None
         self.time = float(data.current_time)
         self.step = 0
-        for p in self._plugins:
-            p.init(self)
 
     # -- construction helpers ----------------------------------------------
+    def _measure_cell_cap(self, data, config, n: int) -> int:
+        """Cell capacity from the start state's max occupancy; adopts
+        non-uniform z rows (self._z_edges) for inhomogeneous scenes."""
+        dims = np.maximum(
+            1, np.floor(self.box / config.lj_cutoff).astype(int)
+        )
+        cl = self.box / dims
+        c3 = np.clip((data.r / cl).astype(int), 0, dims - 1)
+        lin = (c3[:, 2] * dims[1] + c3[:, 1]) * dims[0] + c3[:, 0]
+        max_occ = int(np.bincount(lin).max()) if n else 8
+        # inhomogeneous scenes (vapor-dominated: evaporation, droplets,
+        # two-phase slabs): non-uniform z rows (ops/cells.adaptive_z_edges)
+        # collapse sparse regions into few wide rows -- fewer cells at
+        # unchanged capacity is a direct compute cut (the dense design's
+        # cost is cells x cap^2)
+        mean_occ = n / max(float(np.prod(dims)), 1.0) if n else 1.0
+        if n and dims[2] >= 4 and max_occ > 3.0 * max(mean_occ, 1.0):
+            min_h = max(config.cutoff, config.lj_cutoff)
+            edges = adaptive_z_edges(
+                data.r, self.box, (dims[0], dims[1]), min_h, occ_limit=max_occ,
+            )
+            if edges and (len(edges) - 1) <= 0.75 * dims[2]:
+                cz = np.clip(
+                    np.searchsorted(np.asarray(edges)[1:-1], data.r[:, 2],
+                                    side="right"),
+                    0, len(edges) - 2,
+                )
+                lin2 = (cz * dims[1] + c3[:, 1]) * dims[0] + c3[:, 0]
+                occ2 = int(np.bincount(lin2).max())
+                # adopt when the POWER-OF-2 CAPACITY doesn't grow
+                # (forced min-height rows can beat the uniform max
+                # occupancy by lattice-plane aliasing without changing
+                # the capacity class)
+                if _cap_for(occ2) <= _cap_for(max_occ):
+                    self._z_edges = edges
+                    global_log.info(
+                        "adaptive z rows: %d non-uniform rows replace %d "
+                        "uniform (max cell occupancy %d vs %d, cap %d)",
+                        len(edges) - 1, int(dims[2]), occ2, max_occ,
+                        _cap_for(occ2),
+                    )
+                    max_occ = max(max_occ, occ2)
+        return _cap_for(max_occ)
+
+    def _sim_config(self, data, config, cell_cap: int) -> SimConfig:
+        """SimConfig with the thermostat set-up of the scene."""
+        thermo = config.ensemble_type.upper() == "NVT" and (
+            config.temperature > 0 or bool(data.thermostat_temps)
+        )
+        # component-wise thermostats from the .inp header
+        # (ASCIIReader.cpp ComponentThermostat/ThermostatTemperature tokens)
+        comp_therm = therm_temps = undirected = None
+        if data.component_thermostats and data.thermostat_temps:
+            K = len(data.components)
+            tids = sorted(set(data.component_thermostats.values()))
+            remap = {t: i for i, t in enumerate(tids)}
+            comp_therm = tuple(
+                remap.get(data.component_thermostats.get(c, tids[0]), 0)
+                for c in range(K)
+            )
+            therm_temps = tuple(
+                data.thermostat_temps.get(t, config.temperature) for t in tids
+            )
+            # Undirected flags follow the same id remap
+            # (ASCIIReader.cpp:125-129 'Undirected'/'U')
+            if data.undirected_thermostats:
+                undirected = tuple(
+                    t in data.undirected_thermostats for t in tids
+                )
+        elif data.undirected_thermostats:
+            # global thermostat flagged Undirected
+            undirected = (True,)
+        # TemperatureControl regions (region coords follow the engine
+        # frame when an axis swap is active); they REPLACE the global
+        # velocity-scaling thermostat (Simulation.cpp:1137-1140)
+        tc_regions = ()
+        if config.temp_control:
+            perm = self._swap_perm() if self._axis_swap is not None else [0, 1, 2]
+
+            def resolve(coords):
+                # the literal 'box' anchors a coordinate at the domain
+                # edge (TemperatureControl.cpp:105)
+                return np.asarray(
+                    [self.box[i] if c == "box" else float(c)
+                     for i, c in enumerate(coords)]
+                )
+
+            tc_regions = tuple(
+                TemperatureControlRegion(
+                    lower=tuple(resolve(d["lower"])[perm]),
+                    upper=tuple(resolve(d["upper"])[perm]),
+                    target_temperature=float(d["target_temperature"]),
+                    frequency=int(d["frequency"]),
+                    exponent=float(d["exponent"]),
+                    component=int(d["component"]),
+                    nslabs=int(d.get("nslabs", 1)),
+                    directions=tuple(d.get("directions", (0, 1, 2))),
+                    ramp_start_t=float(d.get("ramp_start_t", 0.0)),
+                    ramp_end_t=float(d.get("ramp_end_t", 0.0)),
+                    ramp_update_start=int(d.get("ramp_update_start", 0)),
+                    ramp_update_stop=int(d.get("ramp_update_stop", 0)),
+                    ramp_update_freq=int(d.get("ramp_update_freq", 1)),
+                    start=int(d.get("start", 0)),
+                    stop=int(d.get("stop", 2**31 - 1)),
+                )
+                for d in config.temp_control
+            )
+            thermo = False
+        return SimConfig(
+            dt=config.timestep,
+            target_temperature=config.temperature or data.temperature,
+            thermostat=thermo,
+            cell_cap=cell_cap,
+            upot_corr=self.lrc.upot_corr,
+            virial_corr=self.lrc.virial_corr,
+            component_thermostat=comp_therm,
+            thermostat_temps=therm_temps,
+            undirected_thermostats=undirected,
+            z_edges=tuple(self._z_edges) if self._z_edges else None,
+            temp_control_regions=tc_regions,
+        )
+
+    def _pick_force_fn(self, data, config, cell_cap: int, n: int, is_1clj: bool):
+        """The general engine's force path: CudaLJPath (kernels K3/K4),
+        the N^2 oracle sweep, or None for the built-in general cell
+        traversal."""
+        force_fn = None
+        if n and self._force_mode in ("auto", "pallas"):
+            spec = CellGridSpec.create(
+                tuple(self.box), config.lj_cutoff, cap=cell_cap
+            )
+            # cost-based path choice (the TraversalTuner role,
+            # src/particleContainer/TraversalTuner.h:135): tiny dense
+            # scenes with huge cutoffs (3x3x3 cells at cap 256) make the
+            # dense cell kernel evaluate far more candidate lanes
+            # (27 cap^2 a cell) than the N^2 sweep touches pairs
+            kernel_pairs = spec.n_cells * 27 * spec.cap * spec.cap
+            rc_any = max(config.cutoff, config.lj_cutoff)
+            n2_pairs = n * n * (27 if rc_any > min(self.box) / 2 else 1)
+            if n <= _N2_MAX and n2_pairs * 2 < kernel_pairs:
+                global_log.info(
+                    "force path: N^2 beats the cell kernel here "
+                    "(%.2g vs %.2g candidate pairs)", n2_pairs, kernel_pairs,
+                )
+            elif is_1clj and not self._z_edges:
+                force_fn = CudaLJPath(self.table, spec)
+                global_log.info(
+                    "force path: 1CLJ cell kernel (%s), grid %s cap %d",
+                    "cell-window K3" if force_fn.cw else "row K4",
+                    spec.dims, spec.cap,
+                )
+            else:
+                # the JAX driver hands these to its multi-site kernels
+                # (non-uniform z rows included); they do not slide onto
+                # the plain traversal unasked
+                raise _out_of_slice(
+                    "a multi-component, multi-site or polar scene, or a "
+                    "1CLJ scene on non-uniform z rows, on the multi-site "
+                    "cell kernels (force_mode='cells' runs it on the plain "
+                    "general traversal)", "slice 3",
+                )
+        if force_fn is None and (
+            n == 0 or (self._force_mode != "cells" and n <= _N2_MAX)
+        ):
+            # small-N fallback: chunked N^2 oracle (the
+            # LegacyCellProcessor role).  Small scenes with huge cutoffs
+            # blow the cell-pair paths' cap^2 memory; the minimum-image
+            # N^2 sweep is both exact and cheap at this size.
+            images = (
+                27 if max(config.cutoff, config.lj_cutoff) > min(self.box) / 2
+                else 1
+            )
+            pp, box = self.pp, self.box
+
+            def force_fn(mol, _images=images):
+                f, m = compute_forces_n2(mol, pp, box, images=_images)
+                return f, m, torch.zeros((), dtype=torch.bool, device=mol.r.device)
+
+            global_log.info(
+                "force path: N^2 oracle sweep (N=%d, images=%d)", n, images
+            )
+        elif force_fn is None:
+            global_log.info("force path: general multi-site cell traversal")
+        return force_fn
+
+    def _swap_perm(self):
+        """Column permutation exchanging the swap axis with z."""
+        perm = [0, 1, 2]
+        perm[self._axis_swap], perm[2] = perm[2], perm[self._axis_swap]
+        return perm
+
     @classmethod
     def _detect_swap_axis(cls, data, config):
-        """Return x or y when it is markedly emptier (row-occupancy-wise)
-        than z: the JAX driver swaps such an axis onto z, a general-engine
-        feature.  None for homogeneous scenes."""
+        """Pick x or y as the engine z axis when it is markedly emptier
+        (row-occupancy-wise) than z itself -- the signal that the
+        scene's inhomogeneity is normal to that axis.  None for
+        homogeneous scenes."""
         n = len(data.mid)
         if n == 0 or config.longrange.lower() == "planar":
             return None
+        # TemperatureControl regions slice slabs along y and thermostat
+        # per-direction; an axis permutation would silently change both
         if config.temp_control:
             return None
         for c in data.components:
@@ -292,15 +507,34 @@ class MDSimulation:
             raise _out_of_slice(f"generator {name}", "slice 6")
         raise ValueError("config has neither phasespacepoint file nor generator")
 
-    # -- plugin-facing accessors -------------------------------------------
+    # -- accessors (always the ORIGINAL frame) -------------------------------
     def molecules(self) -> MoleculeState:
-        return self.engine.mol
+        mol = self.engine.mol
+        if self._axis_swap is not None:
+            perm = self._swap_perm()
+            mol = dataclasses.replace(
+                mol, r=mol.r[:, perm], v=mol.v[:, perm], L=mol.L[:, perm]
+            )
+        return mol
+
+    def forces_array(self):
+        if self.engine.forces is None:
+            return None
+        F = self.engine.forces.F
+        if self._axis_swap is not None:
+            F = F[:, self._swap_perm()]
+        return F
 
     def _export_phasespace(self) -> PhaseSpaceData:
-        """Current device state -> PhaseSpaceData (the in-memory
-        snapshot used by checkpoints and the adaptive re-spec)."""
+        """Current device state -> PhaseSpaceData in the ORIGINAL frame
+        (the in-memory snapshot used by checkpoints and the adaptive
+        re-spec)."""
         mol = self.molecules()
         valid = mol.valid.cpu().numpy()
+        box = self.box
+        if self._axis_swap is not None:
+            # a transposition is its own inverse
+            box = np.asarray(box)[self._swap_perm()]
 
         def host(x):
             return x.detach().cpu().numpy()[valid]
@@ -310,7 +544,7 @@ class MDSimulation:
             mixing_xi=self.table.mixing_xi,
             mixing_eta=self.table.mixing_eta,
             eps_rf=self.table.eps_rf,
-            box=self.box,
+            box=box,
             # the EFFECTIVE target (scenes whose target came from the
             # phase-space file have config.temperature == 0)
             temperature=(
@@ -324,25 +558,51 @@ class MDSimulation:
             v=host(mol.v).astype(np.float64),
             q=host(mol.q).astype(np.float64),
             L=host(mol.L).astype(np.float64),
+            thermostat_temps=self.phase_space.thermostat_temps,
+            component_thermostats=self.phase_space.component_thermostats,
+            undirected_thermostats=self.phase_space.undirected_thermostats,
         )
 
     def _respec_cell_cap(self, new_cap: int):
         """Adaptive container re-specification: rebuild the cell grid
         and engine with a larger capacity, carrying the current molecule
         state over, and resume (forces are recomputed exactly at the
-        current positions, so the trajectory is unchanged)."""
+        current positions, so the trajectory is unchanged).  The role of
+        the reference's dynamic load balancing: in a dense static-shape
+        design the quantity that drifts with density is cell
+        occupancy."""
         global_log.warning(
             "cell capacity exceeded at step %d: re-spec cell_cap -> %d "
             "and resume", self.step, new_cap,
         )
         data = self._export_phasespace()
-        rebuilt = MDSimulation(
-            self.config, dtype=self.dtype, force_mode=self._force_mode,
-            cell_cap=new_cap, phase_space_data=data, device=self.device,
-        )
+        kw = dict(dtype=self.dtype, force_mode=self._force_mode,
+                  phase_space_data=data, device=self.device)
+        # re-MEASURE from the current state first (cell_cap=0): this
+        # re-runs the axis-swap/adaptive-row detection too, which an
+        # explicit cap would skip; only force the doubled cap if
+        # measurement made no progress
+        rebuilt = MDSimulation(self.config, cell_cap=0, **kw)
+        if rebuilt.engine.config.cell_cap <= self.engine.config.cell_cap:
+            rebuilt = MDSimulation(self.config, cell_cap=new_cap, **kw)
+        # transplant the rebuilt engine and its frame bookkeeping (the
+        # accessors translate through self._axis_swap); clock and
+        # counters live on self and continue
         self.engine = rebuilt.engine
+        self._axis_swap = rebuilt._axis_swap
+        self._z_edges = rebuilt._z_edges
+        self.box = rebuilt.box
+        self.phase_space = rebuilt.phase_space
         self.engine._step_count = self.step
         self.engine.prepare_start()
+
+    def _cap_or_give_up(self) -> int:
+        cap = self.engine.config.cell_cap
+        if cap >= 2048:
+            raise RuntimeError(
+                "cell capacity exceeded at cap=%d; giving up" % cap
+            )
+        return cap
 
     def write_checkpoint(self, path: str):
         """ASCII .inp checkpoint, compatible with the reference's format."""
@@ -367,11 +627,20 @@ class MDSimulation:
         loop_timer = self.timers["SIMULATION_LOOP"]
         loop_timer.start()
         self.run_abort = False
-        # NaN watchdog cadence: decoupled from print_every (a readback
-        # syncs the device, so per-step checking would stall the queue)
+        # overflow/NaN watchdog cadence: decoupled from print_every (a
+        # readback syncs the device, so per-step checking would stall
+        # the queue; this bounds the undetected-overflow window instead)
         check_every = min(print_every, 100) if print_every else 100
-        # macro (Upot/virial) cadence: the kernel skips the energy and
-        # virial sums on steps nobody reads
+        # the general engine's per-step overflow flags accumulate as
+        # device scalars (no sync) and are read back in ONE stack at
+        # each check -- a transient overflow between checks must not
+        # vanish (it zeroes forces of the overflowed molecules for that
+        # step).  The RMM engine raises CellCapacityError instead, with
+        # its state untouched.
+        ovf_window = []
+        # macro (Upot/virial) cadence: the RMM engine skips the energy
+        # and virial sums on steps nobody reads (the general engine
+        # computes them every step and ignores the hint)
         plugin_freqs = sorted(
             {max(1, int(getattr(p, "write_frequency", 1)))
              for p in self._plugins}
@@ -388,18 +657,12 @@ class MDSimulation:
                 or any(self.step % f == 0 for f in plugin_freqs)
             )
             try:
-                gv = eng.advance(need_macro)
+                gv, overflow = eng.advance(need_macro)
             except CellCapacityError:
-                # adaptive re-spec instead of aborting; the engine left
-                # its state untouched, so nothing is lost
-                cap = eng.config.cell_cap
-                if cap >= 2048:
-                    raise RuntimeError(
-                        "cell capacity exceeded at cap=%d; giving up" % cap
-                    )
-                self._respec_cell_cap(2 * cap)
+                self._respec_cell_cap(2 * self._cap_or_give_up())
                 eng = self.engine
-                gv = eng.advance(need_macro)
+                gv, overflow = eng.advance(need_macro)
+            ovf_window.append(overflow)
             self.last_globals = gv
             self.time += self.config.timestep
             for p in self._plugins:
@@ -415,7 +678,8 @@ class MDSimulation:
                     float(gv.pressure),
                 )
             if self.step % check_every == 0 or k == steps:
-                # NaN watchdog (Simulation.cpp:1236-1239)
+                # NaN watchdog FIRST: re-spec'ing garbage state would
+                # only rebuild and re-crash (Simulation.cpp:1236-1239)
                 if not (
                     np.isfinite(float(gv.upot))
                     and np.isfinite(float(gv.temperature))
@@ -425,6 +689,11 @@ class MDSimulation:
                         f"(T={float(gv.temperature)}, "
                         f"Upot={float(gv.upot)}); aborting"
                     )
+                any_ovf = bool(torch.stack(ovf_window).any())
+                ovf_window.clear()
+                if any_ovf:
+                    self._respec_cell_cap(2 * self._cap_or_give_up())
+                    eng = self.engine
             if self.run_abort:
                 global_log.info("run aborted by plugin at step %d", self.step)
                 break

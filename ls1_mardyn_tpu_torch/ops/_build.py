@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (sm_90a)
 into a shared library with a plain C interface, loaded through ctypes.
 The library lands in ``build/kernels/`` at the repository root (listed
-in .gitignore) under a name that carries a hash of the source text and
-the flags, so an edited source is rebuilt and an unchanged one is
-reused within a checkout.  Nothing here runs at import time.
+in .gitignore) under a name that carries a hash of the source text, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and an unchanged one is reused within a checkout.  ``load``
+builds one library at first use; ``build_all`` starts one ``nvcc`` per
+source at once.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -50,9 +52,45 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
+    h = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{h}.so"
+
+
+def _start(name: str, out: Path):
+    """Start nvcc for csrc/<name>.cu; returns (process, tmp, t0, cmd)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp, time.perf_counter(), cmd
+
+
+def _finish(name: str, out: Path, started) -> None:
+    proc, tmp, t0, cmd = started
+    stdout, stderr = proc.communicate()
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    log = out.with_suffix(".log")
+    log.write_text(" ".join(cmd) + "\n" + stdout + stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for csrc/{name}.cu (see {log}):\n" + stderr[-4000:]
+        )
+    os.replace(tmp, out)
+
+
+def build_all(names) -> None:
+    """Build every missing library of `names`, one nvcc each, all
+    started together."""
+    with _LOCK:
+        todo = {n: library_path(n) for n in names}
+        started = {n: _start(n, out) for n, out in todo.items()
+                   if not out.exists()}
+        for n, st in started.items():
+            _finish(n, todo[n], st)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -62,20 +100,7 @@ def load(name: str) -> ctypes.CDLL:
             return _LOADED[name]
         out = library_path(name)
         if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            BUILD_SECONDS[name] = time.perf_counter() - t0
-            log = out.with_suffix(".log")
-            log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for csrc/{name}.cu (see {log}):\n"
-                    + res.stderr[-4000:]
-                )
-            os.replace(tmp, out)
+            _finish(name, out, _start(name, out))
         lib = ctypes.CDLL(str(out))
         _LOADED[name] = lib
         return lib

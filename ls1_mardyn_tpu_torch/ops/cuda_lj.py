@@ -1,15 +1,20 @@
-"""Kernel K1: LJ-12-6 cell forces on the dense RMM layout.
+"""Kernels K1, K3 and K4: LJ-12-6 cell forces on the dense cell layout.
 
-The CUDA kernel (csrc/lj_cells.cu) replaces the TPU kernel
-ls1_mardyn_tpu/ops/pallas_lj.py: lj_cell_forces_pallas_cwn3l.  Its
-plain PyTorch version, `lj_cell_forces_reference`, sits beside it: the
-CPU tests hold it against the JAX kernel, and chip_smoke.py holds the
-CUDA kernel against it on the card.
+Each CUDA kernel replaces one TPU kernel of ls1_mardyn_tpu/ops/pallas_lj.py
+and has its plain PyTorch version beside it: the CPU tests hold the
+plain version against the JAX kernel, and chip_smoke.py holds the CUDA
+kernel against the plain version on the card.
 
-Layout: r4 [nz, ny, 4, nx*cap] holds cell-local (x, y, z, valid) with
-cap slots per cell along the last axis (x-major cell rows).  Periodic
-images are exact integer cell offsets: dr = r_i - r_j - off*cell_len
-for the neighbour cell at offset off in {-1,0,1}^3.
+  K1 lj_cell_forces      csrc/lj_cells.cu      lj_cell_forces_pallas_cwn3l
+  K3 lj_cell_forces_cw   csrc/lj_cells_cw.cu   lj_cell_forces_pallas_cw
+  K4 lj_cell_forces_row  csrc/lj_cells_row.cu  lj_cell_forces_pallas
+
+Layout: r4 [nz, ny, 4, nx*cap] holds (x, y, z, valid) with cap slots
+per cell along the last axis (x-major cell rows).  In cell-local
+coordinates periodic images are exact integer cell offsets:
+dr = r_i - (r_j + off*cell_len) for the neighbour cell at offset off in
+{-1,0,1}^3.  A wrapper takes the plain version only for a CPU tensor; a
+CUDA tensor launches the kernel (built at first use) or raises.
 """
 
 from __future__ import annotations
@@ -25,8 +30,9 @@ from ls1_mardyn_tpu_torch.ops import _build
 
 # Sentinel scale for invalid slots (y_local = SENTINEL_SCALE*(1+slot)),
 # the JAX package's layout rule (ops/pallas_lj.py: SENTINEL_SCALE).  The
-# CUDA kernel masks on validity and does not rely on it; the rebin keeps
-# writing it so the state stays identical to the JAX package's.
+# CUDA kernels mask on validity and do not rely on it; the RMM state
+# (ops/rmm.py) keeps writing it so that it stays identical to the JAX
+# package's, the general path's layout (ops/lj_path.py) does not.
 SENTINEL_SCALE = 1e3
 
 
@@ -42,8 +48,87 @@ def sentinel_eligible(cell_len, rc2: float, cap: int) -> bool:
     return (edge_lo - 2.0 * ulp) ** 2 >= rc2 and gap > 0 and gap ** 2 > rc2
 
 
-# pair lanes per chunk of the plain version (bounds its temporaries)
+# pair lanes per chunk of the plain versions (bounds their temporaries)
 _REF_CHUNK = 1 << 24
+
+
+def _cells(r4, nx, cap):
+    """[nzr, nyr, 4, nx*cap] -> positions [nzr,nyr,nx,cap,3], valid [..]."""
+    g = r4.reshape(r4.shape[0], r4.shape[1], 4, nx, cap).permute(0, 1, 3, 4, 2)
+    return g[..., :3], g[..., 3] > 0.5
+
+
+def _reference(pos_i, val_i, j_cells, *, cap, eps24, sig2, shift6, rc2,
+               compute_macro, compute_vi=False):
+    """The pair sum all three plain versions share.  pos_i, val_i: the i
+    cells [nz,ny,nx,cap,(3)].  j_cells(z0, z1, off) returns, for the i
+    rows z0:z1 and the neighbour offset off = (dz, dy, dx), the
+    neighbour cells' positions WITH the image shift added (r_j + shift,
+    rounded once, as the CUDA kernels stage them) and their validity.
+    All cap x cap slot pairs of every cell pair are evaluated from both
+    sides; u6 and the virial are halved per pair.
+    Returns (f [nz,ny,nx,cap,3], vi or None, u6, vir)."""
+    nz, ny, nx = pos_i.shape[:3]
+    dtype, dev = pos_i.dtype, pos_i.device
+    eye = torch.eye(cap, dtype=torch.bool, device=dev)
+    f = torch.zeros((nz, ny, nx, cap, 3), dtype=dtype, device=dev)
+    vip = torch.zeros_like(f) if compute_vi else None
+    u6 = torch.zeros((), dtype=dtype, device=dev)
+    vir = torch.zeros((), dtype=dtype, device=dev)
+    zc = max(1, min(nz, _REF_CHUNK // (ny * nx * cap * cap)))
+    for z0 in range(0, nz, zc):
+        z1 = min(nz, z0 + zc)
+        pi, vi = pos_i[z0:z1], val_i[z0:z1]
+        fi = torch.zeros_like(pi)
+        vii = torch.zeros_like(pi) if compute_vi else None
+        for off in itertools.product((-1, 0, 1), repeat=3):
+            pj, vj = j_cells(z0, z1, off)
+            dr = pi[..., :, None, :] - pj[..., None, :, :]
+            # rounded as the CUDA kernels round it: same cutoff decisions
+            dr2 = dr[..., 0] * dr[..., 0] + dr[..., 1] * dr[..., 1] \
+                + dr[..., 2] * dr[..., 2]
+            m = vi[..., :, None] & vj[..., None, :] & (dr2 < rc2)
+            if off == (0, 0, 0):
+                m = m & ~eye
+            # the pair function runs on the pairs inside the cutoff only
+            idx = m.nonzero(as_tuple=True)
+            drm = dr[idx]
+            fp, u6p = potentials.lj(drm, dr2[idx], eps24, sig2)
+            fi.index_put_(idx[:-1], fp, accumulate=True)
+            if compute_vi:
+                vii.index_put_(idx[:-1], fp * drm, accumulate=True)
+            if compute_macro:
+                u6 += (u6p + shift6).sum()
+                vir += (fp * drm).sum()
+        f[z0:z1] = fi
+        if compute_vi:
+            vip[z0:z1] = 0.5 * vii
+    return f, vip, 0.5 * u6, 0.5 * vir
+
+
+def _planes_out(f, nx, cap):
+    """[nz,ny,nx,cap,3] -> [nz,ny,3,nx*cap]."""
+    nz, ny = f.shape[:2]
+    return f.permute(0, 1, 4, 2, 3).reshape(nz, ny, 3, nx * cap)
+
+
+def _local_j_cells(pos_j, val_j, cell_len, nz, z_halo):
+    """j_cells of the cell-local layouts: the neighbour cells by a
+    periodic roll in y and x (and z, unless pos_j carries explicit z
+    halo rows), shifted by off*cell_len."""
+    dtype, dev = pos_j.dtype, pos_j.device
+    cl = torch.tensor(cell_len, dtype=dtype, device=dev)
+
+    def j_cells(z0, z1, off):
+        dz, dy, dx = off
+        zs = torch.arange(z0, z1, device=dev) + dz
+        zj = zs + 1 if z_halo else torch.remainder(zs, nz)
+        pj = torch.roll(pos_j.index_select(0, zj), (-dy, -dx), (1, 2))
+        vj = torch.roll(val_j.index_select(0, zj), (-dy, -dx), (1, 2))
+        shift = torch.tensor((dx, dy, dz), dtype=dtype, device=dev) * cl
+        return pj + shift, vj
+
+    return j_cells
 
 
 def lj_cell_forces_reference(
@@ -54,64 +139,28 @@ def lj_cell_forces_reference(
     evaluate all cap x cap slot pairs.  Double-sided; u6 and the virial
     are halved per pair.  Returns (f [nz,ny,3,nx*cap], u6, vir)."""
     nx, ny, nz = dims
-    dtype, dev = r4.dtype, r4.device
-    g = r4.reshape(nz, ny, 4, nx, cap).permute(0, 1, 3, 4, 2)  # [nz,ny,nx,cap,4]
-    pos = g[..., :3]
-    val = g[..., 3] > 0.5
-    cl = torch.tensor(cell_len, dtype=dtype, device=dev)
-    eye = torch.eye(cap, dtype=torch.bool, device=dev)
-    f = torch.zeros((nz, ny, nx, cap, 3), dtype=dtype, device=dev)
-    u6 = torch.zeros((), dtype=dtype, device=dev)
-    vir = torch.zeros((), dtype=dtype, device=dev)
-    zc = max(1, min(nz, _REF_CHUNK // (ny * nx * cap * cap)))
-    for z0 in range(0, nz, zc):
-        z1 = min(nz, z0 + zc)
-        zs = torch.arange(z0, z1, device=dev)
-        pi, vi = pos[z0:z1], val[z0:z1]
-        fi = torch.zeros_like(pi)
-        for dz, dy, dx in itertools.product((-1, 0, 1), repeat=3):
-            zj = torch.remainder(zs + dz, nz)
-            pj = torch.roll(pos.index_select(0, zj), (-dy, -dx), (1, 2))
-            vj = torch.roll(val.index_select(0, zj), (-dy, -dx), (1, 2))
-            off = torch.tensor((dx, dy, dz), dtype=dtype, device=dev) * cl
-            dr = pi[..., :, None, :] - (pj + off)[..., None, :, :]
-            # rounded as the CUDA kernel rounds it: same cutoff decisions
-            dr2 = dr[..., 0] * dr[..., 0] + dr[..., 1] * dr[..., 1] \
-                + dr[..., 2] * dr[..., 2]
-            m = vi[..., :, None] & vj[..., None, :] & (dr2 < rc2)
-            if dx == dy == dz == 0:
-                m = m & ~eye
-            # the pair function runs on the pairs inside the cutoff only
-            idx = m.nonzero(as_tuple=True)
-            drm = dr[idx]
-            fp, u6p = potentials.lj(drm, dr2[idx], eps24, sig2)
-            fi.index_put_(idx[:-1], fp, accumulate=True)
-            if compute_macro:
-                u6 += (u6p + shift6).sum()
-                vir += (fp * drm).sum()
-        f[z0:z1] = fi
-    f = f.permute(0, 1, 4, 2, 3).reshape(nz, ny, 3, nx * cap)
-    return f, 0.5 * u6, 0.5 * vir
+    pos, val = _cells(r4, nx, cap)
+    f, _, u6, vir = _reference(
+        pos, val, _local_j_cells(pos, val, cell_len, nz, False), cap=cap,
+        eps24=eps24, sig2=sig2, shift6=shift6, rc2=rc2,
+        compute_macro=compute_macro)
+    return _planes_out(f, nx, cap), u6, vir
 
 
-def _check(r4, dims, cap):
-    nx, ny, nz = dims
+def _check(r4, shape, cap, what="lj_cell_forces"):
     if r4.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"lj_cell_forces: dtype {r4.dtype} (f32/f64 only)")
-    if tuple(r4.shape) != (nz, ny, 4, nx * cap):
-        raise ValueError(
-            f"lj_cell_forces: r4 shape {tuple(r4.shape)} != "
-            f"{(nz, ny, 4, nx * cap)}"
-        )
-    if min(dims) < 3:
-        raise ValueError(f"lj_cell_forces: dims {dims} need >= 3 cells per axis")
+        raise TypeError(f"{what}: dtype {r4.dtype} (f32/f64 only)")
+    if tuple(r4.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(r4.shape)} != {tuple(shape)}")
     if cap % 32 or not 32 <= cap <= 1024:
-        raise ValueError(f"lj_cell_forces: cap {cap} (multiple of 32, <= 1024)")
+        raise ValueError(f"{what}: cap {cap} (multiple of 32, <= 1024)")
 
 
 def _planes(r4, W):
     """Plane count P of the contiguous [nz,ny,P,W] tensor r4 is a
     leading-plane slice of; raises on any other layout."""
+    if r4.is_contiguous():
+        return r4.shape[2]
     s0, s1, s2, s3 = r4.stride()
     P = s1 // W
     if s3 != 1 or s2 != W or s1 != P * W or P < 4 or s0 != r4.shape[1] * s1:
@@ -122,17 +171,46 @@ def _planes(r4, W):
     return P
 
 
-def _lib():
-    lib = _build.load("lj_cells")
+_VP, _CI, _CD = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# argument types of each library's <name>_f32 / <name>_f64 entry points
+_ARGTYPES = {
+    "lj_cells": [_VP] * 3 + [_CI] * 5 + [_CD] * 7 + [_CI, _VP],
+    "lj_cells_cw": [_VP] * 4 + [_CI] * 7 + [_CD] * 7 + [_CI, _CI, _VP],
+    "lj_cells_row": [_VP] * 4 + [_CI] * 8 + [_CD] * 7 + [_CI, _VP],
+}
+
+
+def _lib(name):
+    lib = _build.load(name)
     if not getattr(lib, "_typed", False):
-        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        for fn in (lib.lj_cells_f32, lib.lj_cells_f64):
-            fn.argtypes = [vp, vp, vp] + [ci] * 5 + [cd] * 7 + [ci, vp]
-            fn.restype = ci
-        lib.lj_cells_num_blocks.argtypes = [ci] * 4
-        lib.lj_cells_num_blocks.restype = ci
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = _ARGTYPES[name]
+            fn.restype = _CI
+        nb = getattr(lib, name + "_num_blocks")
+        nb.argtypes = [_CI] * 4
+        nb.restype = _CI
         lib._typed = True
     return lib
+
+
+def _launch(name, r4, out_planes, dims, cap, args, compute_macro):
+    """Allocate outputs, launch csrc/<name>.cu on PyTorch's current
+    stream, check the status; returns (f, u6, vir).  `args(f, part)`
+    gives the entry point's arguments before the stream."""
+    nx, ny, nz = dims
+    lib = _lib(name)
+    f = torch.empty((nz, ny, out_planes, nx * cap), dtype=r4.dtype, device=r4.device)
+    nb = getattr(lib, name + "_num_blocks")(nx, ny, nz, cap)
+    part = torch.empty((nb, 2), dtype=r4.dtype, device=r4.device)
+    fn = getattr(lib, name + ("_f32" if r4.dtype == torch.float32 else "_f64"))
+    stream = torch.cuda.current_stream(r4.device).cuda_stream
+    _build.check(fn(*args(f, part), stream), name)
+    if compute_macro:
+        u6, vir = part.sum(0).unbind()
+    else:
+        u6 = vir = torch.zeros((), dtype=r4.dtype, device=r4.device)
+    return f, u6, vir
 
 
 def lj_cell_forces(
@@ -144,34 +222,214 @@ def lj_cell_forces(
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel (built at first use) or raises."""
-    _check(r4, dims, cap)
+    nx, ny, nz = dims
+    _check(r4, (nz, ny, 4, nx * cap), cap)
+    if min(dims) < 3:
+        raise ValueError(f"lj_cell_forces: dims {dims} need >= 3 cells per axis")
     kw = dict(dims=dims, cap=cap, cell_len=cell_len, eps24=eps24, sig2=sig2,
               shift6=shift6, rc2=rc2, compute_macro=compute_macro)
     if r4.device.type == "cpu":
         return lj_cell_forces_reference(r4, **kw)
     if r4.device.type != "cuda":
         raise ValueError(f"lj_cell_forces: device {r4.device}")
-    nx, ny, nz = dims
-    W = nx * cap
-    P = _planes(r4, W)
-    lib = _lib()
-    f = torch.empty((nz, ny, 3, W), dtype=r4.dtype, device=r4.device)
-    nb = lib.lj_cells_num_blocks(nx, ny, nz, cap)
-    part = torch.empty((nb, 2), dtype=r4.dtype, device=r4.device)
-    fn = lib.lj_cells_f32 if r4.dtype == torch.float32 else lib.lj_cells_f64
-    stream = torch.cuda.current_stream(r4.device).cuda_stream
-    status = fn(
-        r4.data_ptr(), f.data_ptr(), part.data_ptr(), nx, ny, nz, cap, P,
-        *(float(c) for c in cell_len), float(eps24), float(sig2),
-        float(shift6), float(rc2), int(bool(compute_macro)), stream,
-    )
-    _build.check(status, "lj_cells")
+    P = _planes(r4, nx * cap)
+    out = _launch(
+        "lj_cells", r4, 3, dims, cap,
+        lambda f, part: (
+            r4.data_ptr(), f.data_ptr(), part.data_ptr(), nx, ny, nz, cap, P,
+            *(float(c) for c in cell_len), float(eps24), float(sig2),
+            float(shift6), float(rc2), int(bool(compute_macro))),
+        compute_macro)
     lj_cell_forces.launches += 1
-    if compute_macro:
-        u6, vir = part.sum(0).unbind()
-    else:
-        u6 = vir = torch.zeros((), dtype=r4.dtype, device=r4.device)
-    return f, u6, vir
+    return out
 
 
 lj_cell_forces.launches = 0
+
+
+# -- K3: cell-window kernel ---------------------------------------------------
+
+def lj_cell_forces_cw_reference(
+    r_i, r_j=None, *, dims, cap, cell_len, eps24, sig2, shift6, rc2,
+    z_halo=False, compute_macro=True, compute_vi=False
+):
+    """Plain PyTorch version of K3 (see lj_cell_forces_cw)."""
+    nx, ny, nz = dims
+    pos_i, val_i = _cells(r_i, nx, cap)
+    pos_j, val_j = (pos_i, val_i) if r_j is None else _cells(r_j, nx, cap)
+    f, vi, u6, vir = _reference(
+        pos_i, val_i, _local_j_cells(pos_j, val_j, cell_len, nz, z_halo),
+        cap=cap, eps24=eps24, sig2=sig2, shift6=shift6, rc2=rc2,
+        compute_macro=compute_macro, compute_vi=compute_vi)
+    f = _planes_out(f, nx, cap)
+    if compute_vi:
+        f = torch.cat([f, _planes_out(vi, nx, cap)], dim=2)
+    return f, u6, vir
+
+
+def lj_cell_forces_cw(
+    r_i, r_j=None, *, dims, cap, cell_len, eps24, sig2, shift6, rc2,
+    z_halo=False, compute_macro=True, compute_vi=False
+):
+    """K3 wrapper: double-sided 1CLJ forces in cell-local coordinates
+    over the 27 neighbour cells (9 (dz,dy) rows x the cell's own
+    x window), on any grid with nx >= 3 and a cell edge >= rc; ny and nz
+    may be 1 or 2, where two offsets reach the same row through
+    different periodic images and both count.
+
+    r_i [nz, ny, 4, nx*cap]; r_j is the j source, r_i itself when None.
+    With z_halo it is [nz+2, ny, 4, nx*cap] and carries one explicit z
+    halo row per side: neighbour row dz is r_j[z+dz+1], no wrap in z.
+    The TPU kernel's j view also stores a 1+3-cell periodic x halo
+    ([.., (nx+4)*cap]); this kernel wraps x in its index instead, so the
+    view has no x halo.
+    Returns (f, u6, vir) with f [nz,ny,3,nx*cap], or [nz,ny,6,nx*cap]
+    with compute_vi: planes 3..5 hold the per-slot per-axis virial
+    0.5 * sum_j f_a * dr_a."""
+    nx, ny, nz = dims
+    what = "lj_cell_forces_cw"
+    _check(r_i, (nz, ny, 4, nx * cap), cap, what)
+    if r_j is None and z_halo:
+        raise ValueError(f"{what}: z_halo needs an explicit j source")
+    src = r_i if r_j is None else r_j
+    if r_j is not None:
+        _check(r_j, (nz + 2 if z_halo else nz, ny, 4, nx * cap), cap, what)
+        if r_j.dtype != r_i.dtype or r_j.device != r_i.device:
+            raise ValueError(f"{what}: r_i and r_j differ in dtype or device")
+    if nx < 3:
+        raise ValueError(f"{what}: dims {dims} need nx >= 3")
+    if min(cell_len) ** 2 < rc2:
+        raise ValueError(f"{what}: cell edge {min(cell_len)} < cutoff")
+    kw = dict(dims=dims, cap=cap, cell_len=cell_len, eps24=eps24, sig2=sig2,
+              shift6=shift6, rc2=rc2, z_halo=z_halo,
+              compute_macro=compute_macro, compute_vi=compute_vi)
+    if r_i.device.type == "cpu":
+        return lj_cell_forces_cw_reference(r_i, r_j, **kw)
+    if r_i.device.type != "cuda":
+        raise ValueError(f"{what}: device {r_i.device}")
+    Pi, Pj = _planes(r_i, nx * cap), _planes(src, nx * cap)
+    out = _launch(
+        "lj_cells_cw", r_i, 6 if compute_vi else 3, dims, cap,
+        lambda f, part: (
+            r_i.data_ptr(), src.data_ptr(), f.data_ptr(), part.data_ptr(),
+            nx, ny, nz, cap, Pi, Pj, int(bool(z_halo)),
+            *(float(c) for c in cell_len), float(eps24), float(sig2),
+            float(shift6), float(rc2), int(bool(compute_macro)),
+            int(bool(compute_vi))),
+        compute_macro)
+    lj_cell_forces_cw.launches += 1
+    return out
+
+
+lj_cell_forces_cw.launches = 0
+
+
+# -- K4: row kernel on an explicit j view ---------------------------------------
+
+def _row_units(dims, box, local_coords):
+    """Image-shift units of K4: the cell edges in local mode, (0, by,
+    bz) in absolute mode (the x halo is pre-shifted by the caller)."""
+    if local_coords:
+        return tuple(float(b) / d for b, d in zip(box, dims))
+    return (0.0, float(box[1]), float(box[2]))
+
+
+def lj_cell_forces_row_reference(
+    r_i, r_j, *, dims, cap, box, eps24, sig2, shift6, rc2, hx=1,
+    local_coords=False, z_halo=False, y_halo=False, compute_macro=True,
+    sentinel=False
+):
+    """Plain PyTorch version of K4 (see lj_cell_forces_row)."""
+    nx, ny, nz = dims
+    dtype, dev = r_i.dtype, r_i.device
+    pos_i, val_i = _cells(r_i, nx, cap)
+    pos_j, val_j = _cells(r_j, nx + 2 * hx, cap)
+    units = torch.tensor(_row_units(dims, box, local_coords), dtype=dtype,
+                         device=dev)
+    ys = torch.arange(ny, device=dev)
+
+    def rows(idx, d, n, halo):
+        """Row indices into the j view and the image multiplier of each
+        i row for neighbour offset d."""
+        raw = idx + d
+        if local_coords:
+            mult = torch.full_like(raw, d)
+        elif halo:
+            mult = torch.zeros_like(raw)
+        else:
+            mult = (raw >= n).to(torch.long) - (raw < 0).to(torch.long)
+        return (raw + 1 if halo else torch.remainder(raw, n)), mult
+
+    def j_cells(z0, z1, off):
+        dz, dy, dx = off
+        zj, mz = rows(torch.arange(z0, z1, device=dev), dz, nz, z_halo)
+        yj, my = rows(ys, dy, ny, y_halo)
+        x0 = hx + dx
+        pj = pos_j.index_select(0, zj).index_select(1, yj)[:, :, x0:x0 + nx]
+        vj = val_j.index_select(0, zj).index_select(1, yj)[:, :, x0:x0 + nx]
+        mult = torch.zeros((z1 - z0, ny, 1, 1, 3), dtype=dtype, device=dev)
+        mult[..., 0] = dx if local_coords else 0
+        mult[..., 1] = my.to(dtype)[None, :, None, None]
+        mult[..., 2] = mz.to(dtype)[:, None, None, None]
+        return pj + mult * units, vj
+
+    f, _, u6, vir = _reference(
+        pos_i, val_i, j_cells, cap=cap, eps24=eps24, sig2=sig2, shift6=shift6,
+        rc2=rc2, compute_macro=compute_macro)
+    return _planes_out(f, nx, cap), u6, vir
+
+
+def lj_cell_forces_row(
+    r_i, r_j, *, dims, cap, box, eps24, sig2, shift6, rc2, hx=1,
+    local_coords=False, z_halo=False, y_halo=False, compute_macro=True,
+    sentinel=False
+):
+    """K4 wrapper: double-sided 1CLJ forces of r_i [nz, ny, 4, nx*cap]
+    against a separate j view r_j [nz(+2), ny(+2), 4, (nx+2*hx)*cap]
+    with hx halo cells per side in x and, with z_halo / y_halo, one
+    explicit halo row per side in z / y (what a decomposed caller feeds
+    with exchanged rows).  The i slot meets the +-1-cell window.
+
+    local_coords: cell-local coordinates, the x halo cells are plain
+    periodic copies and the neighbour at (dx,dy,dz) is shifted by whole
+    cell edges.  Otherwise absolute coordinates: the caller pre-shifted
+    the x halo by -+Lx, and the kernel adds -+by, -+bz to a j row whose
+    row index wrapped (nothing for an explicit halo row).
+    `sentinel` says that invalid slots carry the far-away y fill; the
+    kernel masks on the validity plane and ignores it.
+    Returns (f [nz,ny,3,nx*cap], u6, vir)."""
+    nx, ny, nz = dims
+    what = "lj_cell_forces_row"
+    _check(r_i, (nz, ny, 4, nx * cap), cap, what)
+    _check(r_j, (nz + 2 * bool(z_halo), ny + 2 * bool(y_halo), 4,
+                 (nx + 2 * hx) * cap), cap, what)
+    if r_j.dtype != r_i.dtype or r_j.device != r_i.device:
+        raise ValueError(f"{what}: r_i and r_j differ in dtype or device")
+    if hx < 1:
+        raise ValueError(f"{what}: hx {hx} (>= 1 halo cell per side)")
+    edge = min(float(b) / d for b, d in zip(box, dims))
+    if edge ** 2 < rc2:
+        raise ValueError(f"{what}: cell edge {edge} < cutoff")
+    kw = dict(dims=dims, cap=cap, box=box, eps24=eps24, sig2=sig2,
+              shift6=shift6, rc2=rc2, hx=hx, local_coords=local_coords,
+              z_halo=z_halo, y_halo=y_halo, compute_macro=compute_macro)
+    if r_i.device.type == "cpu":
+        return lj_cell_forces_row_reference(r_i, r_j, **kw)
+    if r_i.device.type != "cuda":
+        raise ValueError(f"{what}: device {r_i.device}")
+    if not (r_i.is_contiguous() and r_j.is_contiguous()):
+        raise ValueError(f"{what}: r_i and r_j must be contiguous")
+    units = _row_units(dims, box, local_coords)
+    out = _launch(
+        "lj_cells_row", r_i, 3, dims, cap,
+        lambda f, part: (
+            r_i.data_ptr(), r_j.data_ptr(), f.data_ptr(), part.data_ptr(),
+            nx, ny, nz, cap, hx, int(bool(local_coords)), int(bool(z_halo)),
+            int(bool(y_halo)), *units, float(eps24), float(sig2),
+            float(shift6), float(rc2), int(bool(compute_macro))),
+        compute_macro)
+    lj_cell_forces_row.launches += 1
+    return out
+
+
+lj_cell_forces_row.launches = 0

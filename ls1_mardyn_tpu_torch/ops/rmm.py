@@ -241,8 +241,8 @@ class RMMSimulation:
         c3 = torch.remainder(self._slot_cells() + delta, dims)
         cell = (c3[:, 2] * dims[1] + c3[:, 1]) * dims[0] + c3[:, 0]
         flat = torch.cat([new_local, flat[:, 3:]], dim=1)
-        bins = bin_by_id(cell, valid, self.spec)
-        idx = bins.slots.reshape(-1)
+        bins = bin_by_id(cell, valid, self.spec, need_inverse=False)
+        idx = bins.slots.reshape(-1).long()
         safe = torch.clamp(idx, 0, flat.shape[0] - 1)
         ok = (idx >= 0) & valid[safe]
         g = torch.where(ok[:, None], flat[safe], self._empty_fill(NPX, dtype))
@@ -285,10 +285,11 @@ class RMMSimulation:
         # a whole cell edge
         cell_host = (c3[:, 2] * spec.dims[1] + c3[:, 1]) * spec.dims[0] + c3[:, 0]
         valid = mol.valid.to(dev)
-        bins = bin_by_id(torch.as_tensor(cell_host, device=dev), valid, spec)
+        bins = bin_by_id(torch.as_tensor(cell_host, device=dev), valid, spec,
+                         need_inverse=False)
         if bool(bins.overflow):
             raise CellCapacityError("cell capacity exceeded at init")
-        idx = bins.slots.reshape(-1)
+        idx = bins.slots.reshape(-1).long()
         safe = torch.clamp(idx, 0, mol.capacity - 1)
         ok = (idx >= 0) & valid[safe]
         packed = torch.cat(

@@ -12,13 +12,14 @@ Contract notes:
     planes back to flat MoleculeState/Forces arrays (cached per step);
     writing ``mol`` re-initializes the dense state (a full rebin + force
     evaluation).
-  - ``advance(need_macro)``: one leapfrog step.  With need_macro=False
+  - ``advance(need_macro)``: one leapfrog step; returns (GlobalValues,
+    overflow flag) as SingleChipSimulation does.  With need_macro=False
     the kernel skips the Upot/virial sums; the returned GlobalValues
     then carries kinetic-only data and ``macro_fresh`` is False.  A
     capacity overflow that even the global rebin cannot absorb raises
     CellCapacityError with the state unchanged (the driver re-specs the
-    grid from it); the JAX engine instead reports a flag after the
-    lossy global rebin.
+    grid from it), so the flag returned is always False; the JAX engine
+    instead reports a flag after the lossy global rebin.
 """
 
 from __future__ import annotations
@@ -127,6 +128,7 @@ class RMMEngine:
         self.macro: Optional[Macroscopic] = None
         self.macro_fresh = False
         self.last_globals = None
+        self._no_overflow = torch.zeros((), dtype=torch.bool, device=self.device)
 
     @property
     def started(self) -> bool:
@@ -152,8 +154,9 @@ class RMMEngine:
         self._invalidate()
 
     def advance(self, need_macro: bool = True):
-        """One step (preceded by the rebin when due); returns the
-        GlobalValues.  Raises CellCapacityError on a real overflow."""
+        """One step (preceded by the rebin when due); returns
+        (GlobalValues, overflow flag).  Raises CellCapacityError on a
+        real overflow, so the flag is always False."""
         gv = self.sim.step(compute_macro=need_macro)
         self._step_count += 1
         if need_macro:
@@ -161,7 +164,7 @@ class RMMEngine:
         self.macro_fresh = bool(need_macro)
         self.last_globals = gv
         self._invalidate()
-        return gv
+        return gv, self._no_overflow
 
     def retarget(self, t: float):
         """Thermostat retarget mid-run (SteereoControl set_t)."""

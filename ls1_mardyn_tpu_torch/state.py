@@ -15,14 +15,26 @@ import numpy as np
 import torch
 
 
+def resolve_device(device) -> torch.device:
+    """The run's device.  A CUDA device must exist: nothing falls back
+    to the CPU on its own (pass device='cpu' for that)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' (CLI: --device cpu) "
+            "to run on the CPU"
+        )
+    return dev
+
+
 @dataclasses.dataclass
 class MoleculeState:
-    """Dense molecule arrays (every slot live in this slice: the
-    reserve slots of muVT come with ROADMAP slice 5)."""
+    """Dense molecule arrays; capacity N may exceed the live count
+    (reserve slots are invalid and carry neutral values)."""
 
     r: torch.Tensor  # [N,3] center-of-mass position (world)
     v: torch.Tensor  # [N,3] velocity
-    q: torch.Tensor  # [N,4] orientation quaternion (w,x,y,z)
+    q: torch.Tensor  # [N,4] orientation quaternion (w,x,y,z), body->world
     L: torch.Tensor  # [N,3] angular momentum (world frame)
     cid: torch.Tensor  # [N] int32 component index (0-based)
     mid: torch.Tensor  # [N] int32 molecule id
@@ -32,6 +44,9 @@ class MoleculeState:
     def capacity(self) -> int:
         return self.r.shape[0]
 
+    def num_valid(self) -> torch.Tensor:
+        return self.valid.sum().to(torch.int32)
+
     @staticmethod
     def from_numpy(
         r: np.ndarray,
@@ -40,14 +55,26 @@ class MoleculeState:
         L: Optional[np.ndarray] = None,
         cid: Optional[np.ndarray] = None,
         mid: Optional[np.ndarray] = None,
+        capacity: Optional[int] = None,
         dtype: torch.dtype = torch.float32,
-        device="cpu",
+        device="cuda",
     ) -> "MoleculeState":
+        device = resolve_device(device)
         n = r.shape[0]
+        if capacity is None:
+            capacity = n
+        if capacity < n:
+            raise ValueError(f"capacity {capacity} < {n} molecules")
 
-        def f(a):
-            return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                                   device=device)
+        def padf(a):
+            out = np.zeros((capacity,) + np.shape(a)[1:], dtype=np.float64)
+            out[:n] = a
+            return torch.as_tensor(out, dtype=dtype, device=device)
+
+        def padi(a):
+            out = np.zeros((capacity,), np.int32)
+            out[:n] = a
+            return torch.as_tensor(out, device=device)
 
         if q is None:
             q = np.tile(np.array([1.0, 0.0, 0.0, 0.0]), (n, 1))
@@ -57,11 +84,15 @@ class MoleculeState:
             cid = np.zeros((n,), np.int32)
         if mid is None:
             mid = np.arange(1, n + 1, dtype=np.int32)
+        valid = np.zeros((capacity,), bool)
+        valid[:n] = True
+        qp = padf(q)
+        # padded quaternions must stay normalized for safe math
+        qp[n:, 0] = 1.0
         return MoleculeState(
-            r=f(r), v=f(v), q=f(q), L=f(L),
-            cid=torch.as_tensor(np.asarray(cid, np.int32), device=device),
-            mid=torch.as_tensor(np.asarray(mid, np.int32), device=device),
-            valid=torch.ones((n,), dtype=torch.bool, device=device),
+            r=padf(r), v=padf(v), q=qp, L=padf(L),
+            cid=padi(cid), mid=padi(mid),
+            valid=torch.as_tensor(valid, device=device),
         )
 
 
@@ -73,6 +104,11 @@ class Forces:
     F: torch.Tensor  # [N,3]
     M: torch.Tensor  # [N,3]
     Vi: torch.Tensor  # [N,3]
+
+    @staticmethod
+    def zeros(n: int, dtype: torch.dtype = torch.float32, device="cpu") -> "Forces":
+        z = torch.zeros((n, 3), dtype=dtype, device=device)
+        return Forces(z, z, z)
 
 
 @dataclasses.dataclass
@@ -98,3 +134,41 @@ class Macroscopic:
     @property
     def total_virial(self):
         return self.virial + 3.0 * self.my_rf
+
+    @staticmethod
+    def zeros(dtype: torch.dtype = torch.float32, device="cpu") -> "Macroscopic":
+        z = torch.zeros((), dtype=dtype, device=device)
+        return Macroscopic(z, z, z, z)
+
+    def __add__(self, o: "Macroscopic") -> "Macroscopic":
+        return Macroscopic(
+            self.upot6lj + o.upot6lj,
+            self.upot_xpoles + o.upot_xpoles,
+            self.virial + o.virial,
+            self.my_rf + o.my_rf,
+        )
+
+
+@dataclasses.dataclass
+class SimState:
+    """Full per-step simulation state (the step counter is a plain int:
+    the step runs eagerly)."""
+
+    mol: MoleculeState
+    forces: Forces
+    macro: Macroscopic
+    step: int
+    time: float
+
+    @staticmethod
+    def create(mol: MoleculeState, dtype: Optional[torch.dtype] = None) -> "SimState":
+        if dtype is None:
+            dtype = mol.r.dtype
+        dev = mol.r.device
+        return SimState(
+            mol=mol,
+            forces=Forces.zeros(mol.capacity, dtype, dev),
+            macro=Macroscopic.zeros(dtype, dev),
+            step=0,
+            time=0.0,
+        )

@@ -1,4 +1,4 @@
-"""The slice end to end: the port's MDSimulation against the JAX
+"""The RMM path end to end: the port's MDSimulation against the JAX
 package's MDSimulation, both with force_mode="rmm" (MDSimulation ->
 RMMEngine -> RMMSimulation), f64 on the CPU, on CubicGridGenerator XML
 scenes written to tmp_path.  One scene lands on cap 32, one escalates to
@@ -192,34 +192,48 @@ def test_package_imports_without_jax():
     assert res.returncode == 0, res.stderr[-2000:]
 
 
-def _cfg(tmp_path, **kw):
-    path, _ = _xml(tmp_path, 1200, 0.6, **kw)
+def _cfg(tmp_path, n=1200, **kw):
+    path, _ = _xml(tmp_path, n, 0.6, **kw)
     return read_xml_config(path)
 
 
 @pytest.mark.parametrize(
-    "case",
-    ["charges", "muvt", "plugin", "tempcontrol", "force_mode", "tiny_box"],
+    "case,slice_",
+    [("charges", 3), ("charges_pallas", 3), ("muvt", 5), ("plugin", 6),
+     ("ewald", 4), ("planar", 4), ("force_mode", 3)],
 )
-def test_out_of_slice_scene_raises(tmp_path, case):
+def test_out_of_slice_scene_raises(tmp_path, case, slice_):
+    """What later slices bring raises, naming the slice.  A multi-site
+    scene under "auto" or "pallas" (the JAX driver hands it to its
+    multi-site kernels) does not slide onto the plain traversal."""
     kw = {}
-    if case == "charges":
-        cfg = _cfg(tmp_path, extra_site=CHARGE)
+    if case.startswith("charges"):
+        # large enough that the cost rule does not pick the N^2 sweep
+        cfg = _cfg(tmp_path, n=3000, extra_site=CHARGE)
+        if case == "charges_pallas":
+            kw["force_mode"] = "pallas"
     elif case == "muvt":
         cfg = _cfg(tmp_path, ensemble="muVT")
     else:
         cfg = _cfg(tmp_path)
     if case == "plugin":
         cfg.output_plugins.append(PluginSpec("ResultWriter", {}))
-    elif case == "tempcontrol":
-        cfg.temp_control.append(dict(lower=(0, 0, 0), upper=(1, 1, 1)))
+    elif case == "ewald":
+        cfg.electrostatic_solver = "Ewald"
+    elif case == "planar":
+        cfg.longrange = "planar"
     elif case == "force_mode":
-        kw["force_mode"] = "pallas"
-    elif case == "tiny_box":
-        path, _ = _xml(tmp_path, 200, 0.6)
-        cfg = read_xml_config(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
+        kw["force_mode"] = "ms_packed"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP slice {slice_}"):
         MDSimulation(cfg, dtype=torch.float64, device="cpu", **kw)
+
+
+def test_rmm_mode_needs_1clj_scene(tmp_path):
+    """"rmm" on a multi-site scene raises instead of sliding onto the
+    N^2 sweep or the plain traversal."""
+    cfg = _cfg(tmp_path, n=3000, extra_site=CHARGE)
+    with pytest.raises(ValueError, match="force_mode='rmm' needs"):
+        MDSimulation(cfg, dtype=torch.float64, device="cpu", force_mode="rmm")
 
 
 def test_cuda_device_required_unless_cpu_requested(tmp_path, monkeypatch):

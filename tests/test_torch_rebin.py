@@ -55,7 +55,8 @@ def _sims(sentinel_edge, prec, steps=12):
         device="cpu",
     )
     sim.init_from_molecules(MoleculeState.from_numpy(
-        r=data.r, v=data.v, mid=data.mid.astype(np.int32), dtype=tdt))
+        r=data.r, v=data.v, mid=data.mid.astype(np.int32), dtype=tdt,
+        device="cpu"))
     for _ in range(steps):
         sim.state, _ = sim._step(sim.state)
     _, jpp, jtable, jbox = build_scene(data, cutoff=RC, dtype=jdt)

@@ -61,8 +61,7 @@ def test_rmm_matches_jax(n, rho, T, nd, cap):
                             mixing_eta=data.mixing_eta, eps_rf=data.eps_rf,
                             cutoff=RC, lj_cutoff=RC)
     pp = pair_params_from_numpy(
-        {k: np.asarray(getattr(jpp, k)) for k in
-         ("eps24", "sig2", "shift6", "mass", "rc2", "rc2_lj")})
+        {k: np.asarray(v) for k, v in vars(jpp).items()})
     sim = RMMSimulation(ptable, pp, box_t,
                         CellGridSpec(dims=(nd,) * 3, box=box_t, cap=cap),
                         device="cpu", **kw)
@@ -109,7 +108,7 @@ def test_rmm_init_packing_consistent_on_boundaries():
     table = ComponentTable(data.components, cutoff=RC, lj_cutoff=RC)
     mol = MoleculeState.from_numpy(r=data.r, v=data.v,
                                    mid=data.mid.astype(np.int32),
-                                   dtype=torch.float32)
+                                   dtype=torch.float32, device="cpu")
     box = tuple(float(b) for b in np.asarray(data.box, np.float32))
     spec = CellGridSpec(dims=(nd,) * 3, box=box, cap=cap)
     sim = RMMSimulation(table, None, box, spec, dt=0.002,
