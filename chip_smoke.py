@@ -4,18 +4,22 @@
 
 Builds the port's CUDA kernels from ls1_mardyn_tpu_torch/csrc (one nvcc
 per source, all started together), holds each against its plain PyTorch
-version on the card, then drives the port's two engines at full width
--- a 1CLJ NVT fluid of N = 4,194,304 molecules (rho 0.8, rc 2.5, T 1.1)
-started from the committed equilibrated seed
-assets/bench_seed_524288.npz tiled 2x2x2 -- and checks that every
-kernel of a path was launched by it: MDSimulation -> RMMEngine ->
-RMMSimulation (kernels K1, K2) and MDSimulation(force_mode="pallas") ->
-SingleChipSimulation -> CudaLJPath (kernels K3, K4).
+version on the card, then drives the port's paths at full width and
+checks that every kernel of a path was launched by it:
+  - a 1CLJ NVT fluid of N = 4,194,304 molecules (rho 0.8, rc 2.5, T 1.1)
+    started from the committed equilibrated seed
+    assets/bench_seed_524288.npz tiled 2x2x2: MDSimulation -> RMMEngine
+    -> RMMSimulation (kernels K1, K2) and MDSimulation(force_mode=
+    "pallas") -> SingleChipSimulation -> CudaLJPath (kernels K3, K4);
+  - a rigid 2CLJ+quadrupole (CO2-class) fluid of N = 1,061,208 molecules
+    (rho 0.45, rc 6.2, T 1.1): MDSimulation(force_mode="auto") ->
+    SingleChipSimulation -> CudaMultiSitePackedPath (kernel K5), and
+    force_mode="ms_dense" -> CudaMultiSitePath (kernel K6).
 
 Phases (each prints one line; any failure raises, so the script exits
 non-zero and never prints the result line):
   device   GPU name and power limit, torch / CUDA versions
-  build    nvcc build of every kernel, seconds
+  build    nvcc build of every kernel, seconds, ptxas registers
   K1       LJ cell forces vs plain, 16^3 cells cut from the seed, cap 32
            and 64, f32 (max|dF|/max|F| <= 1e-5) and f64 (<= 1e-12)
   K2       shift-merge rebin vs plain on a state drifted 12 steps,
@@ -26,22 +30,38 @@ non-zero and never prints the result line):
   K4       row forces vs plain on the same cells: cell-local and
            absolute coordinates, z and y halo rows, nx = 2; absolute f32
            against the f64 result (<= 5e-3, see phase_k4)
+  K5       packed multi-site forces vs plain (F, M, Vi relative to their
+           max, u6/uX/myRF relative; f32 <= 1e-5, f64 <= 1e-12): a
+           two-component mixture with all seven bodies, a screened
+           water-like scene at cap 160, multi-tile rows under z_halo
+  K6       dense multi-site forces vs plain (limits as K5): the mixture
+           at cap 32 and 160, the screened scene, explicit y + z halo
+           rows (bit-identical to the wrapped result)
   small    the RMM driver on the card vs on the CPU (plain versions),
            N=1024, f64, 20 steps: T, p, Upot rtol 1e-9, r and v 1e-9
   general-small  the general engine on the card vs on the CPU, f64, 20
            steps: force_mode="pallas" (1CLJ, N=1000) and "cells" (a
            2CLJ+quadrupole fluid): T, p, Upot rtol 1e-9; r, v, q, L 1e-9
+  multisite-small  the same for "ms_packed" (K5) and "ms_dense" (K6) on
+           a 2CLJ+quadrupole lattice of N=4096 and a 1CLJ liquid slab in
+           vapour on adaptive z rows under "auto" (K6)
   main     the RMM path at N=4,194,304 for rebin_every+2 steps and a
            timed window of rebin_every steps
   general  the general engine at N=4,194,304: MDSimulation(
            force_mode="pallas"), a warm-up and a timed window of 16
            steps (K3 once per step), then 3 steps with the path's cw
            switched off (K4); peak device memory
-  multisite  a 2CLJ+quadrupole fluid of ~1e5 rigid molecules through
-           force_mode="cells" (the plain traversal, no kernel), 10 steps
-  times    K1..K4 against their plain versions at the shapes their
-           paths gave them (CUDA events), and each kernel's bound; K3
-           and K4 also against plain on K1's grid (56,60,60)
+  multisite-cells  the plain traversal (force_mode="cells", no kernel)
+           on a 2CLJ+quadrupole fluid of N=97,336, 4 steps
+  multisite  the full-width multi-site path: "auto" (K5), a warm-up and
+           a 16-step window, then 3 steps under "ms_dense" (K6); T_trans
+           within 10%, unit quaternions, peak memory above what the
+           script held before
+  times    K1..K6 against their plain versions at the shapes their paths
+           gave them (CUDA events), and each kernel's bound; K3 and K4
+           also against plain on K1's grid (56,60,60); the multi-site
+           plain versions on a 2-row z slab, and at full width when that
+           extrapolates to under 60 s
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
 result.
@@ -60,7 +80,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = os.path.join(HERE, "assets", "bench_seed_524288.npz")
 N_MAIN = 4_194_304
 RHO, RC, TEMP, DT = 0.8, 2.5, 1.1, 0.002
-LIBS = ("lj_cells", "rebin_shift", "lj_cells_cw", "lj_cells_row")
+LIBS = ("lj_cells", "rebin_shift", "lj_cells_cw", "lj_cells_row", "ms_dense",
+        "ms_packed")
 # name, source, TPU kernel it replaces
 KERNELS = {
     "K1": ("K1 lj_cell_forces", "ls1_mardyn_tpu_torch/csrc/lj_cells.cu",
@@ -71,7 +92,15 @@ KERNELS = {
            "ls1_mardyn_tpu/ops/pallas_lj.py:1560"),
     "K4": ("K4 lj_cell_forces_row", "ls1_mardyn_tpu_torch/csrc/lj_cells_row.cu",
            "ls1_mardyn_tpu/ops/pallas_lj.py:356"),
+    "K5": ("K5 multisite_cell_forces_packed",
+           "ls1_mardyn_tpu_torch/csrc/ms_packed.cu",
+           "ls1_mardyn_tpu/ops/pallas_ms_packed.py:485"),
+    "K6": ("K6 multisite_cell_forces", "ls1_mardyn_tpu_torch/csrc/ms_dense.cu",
+           "ls1_mardyn_tpu/ops/pallas_multisite.py:663"),
 }
+# the full-width multi-site scene: a 2CLJ+quadrupole (CO2-class) fluid on
+# a 102^3 lattice at the cutoff of ls1's CO2 example (33.07 a0 = 6.2 sigma)
+N_MS, RHO_MS, RC_MS = 1_061_208, 0.45, 6.2
 # the card's published peaks (H100 SXM data sheet): f32 outside the
 # tensor cores, and device memory
 PEAK_F32_FLOPS = 67e12
@@ -359,11 +388,173 @@ def phase_k4(device):
     say("K4", launches=lj_cell_forces_row.launches)
 
 
-def scene_config(box):
+def ms_scene(kind, n, box, rc, dtype, device, seed=1, thin_upper_z=0.0):
+    """A jittered simple-cubic start of about n rigid molecules in `box`
+    with random orientations, built on `device`: "mix" (two components,
+    A: LJ + charge + dipole, B: LJ + charge + quadrupole, off-COM sites,
+    eps_rf = 5: all seven bodies and the reversed ones) or "water" (LJ +
+    three charges, SPC/E-like geometry).  thin_upper_z keeps only that
+    share of the molecules above box_z / 2 (z-inhomogeneous rows).
+    Returns (mol, table, box tensor)."""
+    from ls1_mardyn_tpu_torch.io.ascii_reader import PhaseSpaceData
+    from ls1_mardyn_tpu_torch.models.components import Component
+    from ls1_mardyn_tpu_torch.scene import build_scene
+
+    rng = np.random.default_rng(seed)
+    box = np.broadcast_to(np.asarray(box, float), (3,)).copy()
+    if kind == "mix":
+        a = Component(cid=0)
+        a.add_ljcenter(0.0, 0.0, 0.0, 1.0, 1.0, 1.0, rc, False)
+        a.add_charge(0.25, 0.0, 0.0, 0.1, 0.5)
+        a.add_dipole(0.0, 0.1, 0.0, 0.0, 1.0, 0.0, 0.8)
+        b = Component(cid=1)
+        b.add_ljcenter(0.0, 0.0, 0.0, 1.2, 0.8, 1.1, rc, False)
+        b.add_charge(0.0, 0.2, 0.0, 0.1, -0.5)
+        b.add_quadrupole(0.05, 0.0, 0.0, 1.0, 0.0, 0.0, 0.9)
+        comps = [a, b]
+    else:
+        c = Component(cid=0)
+        c.add_ljcenter(0.0, 0.0, 0.0, 1.0, 1.0, 1.0, rc, False)
+        c.add_charge(0.0, 0.0, 0.0, 0.0, -0.8476)
+        c.add_charge(0.316, 0.245, 0.0, 0.01, 0.4238)
+        c.add_charge(-0.316, 0.245, 0.0, 0.01, 0.4238)
+        comps = [c]
+    k = np.maximum(1, np.round(box * (n / box.prod()) ** (1 / 3))).astype(int)
+    g = np.stack(np.meshgrid(*[np.arange(m) for m in k], indexing="ij"),
+                 -1).reshape(-1, 3)
+    r = ((g + 0.5) * (box / k) + rng.uniform(-0.15, 0.15, g.shape)) % box
+    if thin_upper_z:
+        r = r[(r[:, 2] < box[2] / 2) | (rng.random(len(r)) < thin_upper_z)]
+    m = len(r)
+    q = rng.normal(size=(m, 4))
+    K = len(comps)
+    data = PhaseSpaceData(
+        components=comps, mixing_xi=np.ones((K, K)), mixing_eta=np.ones((K, K)),
+        eps_rf=5.0, box=box, temperature=TEMP, current_time=0.0,
+        mid=np.arange(1, m + 1), cid=(np.arange(m) % K).astype(np.int32), r=r,
+        v=np.zeros((m, 3)), q=q / np.linalg.norm(q, axis=1, keepdims=True),
+        L=np.zeros((m, 3)))
+    mol, _, table, boxt = build_scene(data, cutoff=rc, dtype=dtype, device=device)
+    return mol, table, boxt
+
+
+def ms_rel_errors(a, b):
+    """max|dF|/max|F|, max|dM|/max|M|, max|dVi|/max|Vi| and the relative
+    errors of u6, uX, myRF of two (out, u6, uX, myRF)."""
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(a[0]).all()), "non-finite multi-site outputs")
+    errs = {}
+    for tag, sl in (("F", slice(0, 3)), ("M", slice(3, 6)), ("Vi", slice(6, 9))):
+        d = float((a[0][:, :, sl] - b[0][:, :, sl]).abs().max())
+        ref = float(b[0][:, :, sl].abs().max())
+        errs[tag] = d / ref if ref else d
+    for tag, x, y in zip(("u6", "uX", "rf"), a[1:], b[1:]):
+        d, ref = abs(float(x) - float(y)), abs(float(y))
+        errs[tag] = d / ref if ref else d
+    return errs
+
+
+def yz_halo_rows(r_j, box):
+    """The x-halo view r_j [nz, ny, P, W] with one explicit halo row per
+    side in y and in z: the periodic images, shifted by -+by / -+bz
+    where valid, put where a slab or mesh exchange would put them."""
+    rows = torch.cat([r_j[:, -1:], r_j, r_j[:, :1]], dim=1)
+    rows[:, 0, 1] -= box[1] * rows[:, 0, 3]
+    rows[:, -1, 1] += box[1] * rows[:, -1, 3]
+    rows = torch.cat([rows[-1:], rows, rows[:1]], dim=0)
+    rows[0, :, 2] -= box[2] * rows[0, :, 3]
+    rows[-1, :, 2] += box[2] * rows[-1, :, 3]
+    return rows.contiguous()
+
+
+def phase_k6(device):
+    """K6 vs its plain version: the mixture (all seven bodies) at cap 32
+    and 160, the screened water-like scene, and explicit y + z halo rows
+    (which must give the wrapped result bit for bit)."""
+    from ls1_mardyn_tpu_torch.ops.cells import CellGridSpec
+    from ls1_mardyn_tpu_torch.ops.cuda_ms import (
+        multisite_cell_forces, multisite_cell_forces_reference)
+    from ls1_mardyn_tpu_torch.ops.ms_path import CudaMultiSitePath
+
+    for dtype, lim in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        errs = {}
+        for tag, kind, cap, alpha in (("mix", "mix", 32, 0.0),
+                                      ("mix_cap160", "mix", 160, 0.0),
+                                      ("water_screened", "water", 64, 0.9)):
+            mol, table, box = ms_scene(kind, 1000, 12.0, 3.0, dtype, device)
+            spec = CellGridSpec.create(box.cpu().numpy(), 3.0, cap=cap)
+            path = CudaMultiSitePath(table, spec, screen_alpha=alpha)
+            r_i, _ = path.layout(mol)
+            r_j = path.x_halo(r_i).contiguous()
+            nx, ny, nz = spec.dims
+            kw = dict(nx=nx, ny=ny, nz=nz, cap=cap, box=spec.box, rc2=path.rc2,
+                      rc2_lj=path.rc2_lj, screen_alpha=alpha, meta=path.meta)
+            got = multisite_cell_forces(r_i, r_j, **kw)
+            errs[tag] = max(ms_rel_errors(
+                got, multisite_cell_forces_reference(r_i, r_j, **kw)).values())
+            if tag == "mix":
+                rows = yz_halo_rows(r_j, spec.box)
+                hk = dict(kw, z_halo=True, y_halo=True)
+                halo = multisite_cell_forces(r_i, rows, **hk)
+                errs["yz_halo"] = max(ms_rel_errors(
+                    halo, multisite_cell_forces_reference(r_i, rows, **hk)
+                ).values())
+                errs["yz_halo=wrapped"] = max(ms_rel_errors(halo, got).values())
+        say("K6", dtype=str(dtype).split(".")[1], grid=spec.dims,
+            rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}), limit=lim)
+        check(max(errs.values()) <= lim,
+              f"K6 disagrees with its plain version ({dtype}): {errs}")
+    say("K6", launches=multisite_cell_forces.launches)
+
+
+def phase_k5(device):
+    """K5 vs its plain version: the mixture, the screened water-like
+    scene at cap 160, and multi-tile rows (> 128 molecules a row) under
+    z_halo with z-inhomogeneous counts (the inner z rows of a periodic
+    packed build against all of its rows as explicit halo rows)."""
+    from ls1_mardyn_tpu_torch.ops.cells import CellGridSpec
+    from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import (
+        CudaMultiSitePackedPath, multisite_cell_forces_packed,
+        multisite_cell_forces_packed_reference)
+
+    for dtype, lim in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        errs = {}
+        for tag, kind, box, cap, alpha, thin in (
+                ("mix", "mix", 12.0, 32, 0.0, 0.0),
+                ("water_screened_cap160", "water", 12.0, 160, 0.9, 0.0),
+                ("multitile_z_halo", "mix", (36.0, 9.6, 12.0), 48, 0.0, 0.4)):
+            mol, table, boxt = ms_scene(kind, 1000 if thin == 0 else 3500, box,
+                                        3.0, dtype, device, thin_upper_z=thin)
+            spec = CellGridSpec.create(boxt.cpu().numpy(), 3.0, cap=cap)
+            path = CudaMultiSitePackedPath(table, spec, screen_alpha=alpha)
+            tbl, r_i, r_j, _, _ = path._build_views(mol)
+            nx, ny, nz = spec.dims
+            kw = dict(nx=nx, ny=ny, nz=nz, cap=cap, Wp=path.Wp, Wjp=path.Wjp,
+                      cell_plane=path.cell_plane, box=spec.box, rc2=path.rc2,
+                      rc2_lj=path.rc2_lj, screen_alpha=alpha, meta=path.meta)
+            if thin:
+                counts = (r_i[:, :, 3] > 0.5).sum(-1)
+                check(int(counts.max()) > 128 and
+                      int(counts[1].max()) != int(counts[-2].max()),
+                      f"K5 multi-tile case: row counts {counts.tolist()}")
+                r_i = r_i[1:-1].contiguous()
+                kw.update(nz=nz - 2, z_halo=True)
+            got = multisite_cell_forces_packed(tbl, r_i, r_j, **kw)
+            errs[tag] = max(ms_rel_errors(
+                got, multisite_cell_forces_packed_reference(tbl, r_i, r_j, **kw)
+            ).values())
+        say("K5", dtype=str(dtype).split(".")[1],
+            rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}), limit=lim)
+        check(max(errs.values()) <= lim,
+              f"K5 disagrees with its plain version ({dtype}): {errs}")
+    say("K5", launches=multisite_cell_forces_packed.launches)
+
+
+def scene_config(box, rc=RC):
     from ls1_mardyn_tpu_torch.io.xml_config import XMLConfig
 
     return XMLConfig(timestep=DT, temperature=TEMP, box=np.asarray(box, float),
-                     cutoff=RC, lj_cutoff=RC, ensemble_type="NVT")
+                     cutoff=rc, lj_cutoff=rc, ensemble_type="NVT")
 
 
 def make_sim(tiles, device, dtype=torch.float32, force_mode="auto"):
@@ -380,20 +571,20 @@ def make_sim(tiles, device, dtype=torch.float32, force_mode="auto"):
                         force_mode=force_mode)
 
 
-def lattice_scene(n, rho, kind, seed=3):
+def lattice_scene(n, rho, kind, seed=3, rc=RC):
     """A cubic-lattice start of n molecules: "1clj", or "2cljq" (two LJ
     sites 0.4 sigma apart and an axial quadrupole) with orientations
-    drawn from `seed`."""
+    drawn from `seed`; LJ shifted at rc."""
     from ls1_mardyn_tpu_torch.io.generators import cubic_grid
     from ls1_mardyn_tpu_torch.models.components import Component
 
     L = (n / rho) ** (1 / 3)
     c = Component(cid=0)
     if kind == "1clj":
-        c.add_ljcenter(0.0, 0.0, 0.0, 1.0, 1.0, 1.0, RC, False)
+        c.add_ljcenter(0.0, 0.0, 0.0, 1.0, 1.0, 1.0, rc, False)
     else:
-        c.add_ljcenter(0.0, 0.0, -0.2, 0.5, 1.0, 1.0, RC, True)
-        c.add_ljcenter(0.0, 0.0, 0.2, 0.5, 1.0, 1.0, RC, True)
+        c.add_ljcenter(0.0, 0.0, -0.2, 0.5, 1.0, 1.0, rc, True)
+        c.add_ljcenter(0.0, 0.0, 0.2, 0.5, 1.0, 1.0, rc, True)
         c.add_quadrupole(0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 1.2)
     data = cubic_grid(n, [L, L, L], TEMP, components=[c], seed=seed)
     if kind != "1clj":
@@ -568,43 +759,280 @@ def phase_general(device, smi):
     return sim, {"K3": k3, "K4": k4}
 
 
-def phase_multisite(device, smi):
-    """Rigid multi-site molecules alive on the card: a 2CLJ+quadrupole
-    fluid through the plain general traversal.  No kernel and no
-    yardstick; it gives the multi-site kernels their later plain time."""
+def phase_multisite_cells(device, smi):
+    """The plain general traversal (force_mode="cells", no kernel) on a
+    2CLJ+quadrupole fluid of N = 97,336: the multi-site path before K5
+    and K6, kept as their end-to-end yardstick."""
     from ls1_mardyn_tpu_torch.driver import MDSimulation
     from ls1_mardyn_tpu_torch.ops.cellforce import default_cell_chunk
 
     torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     data, L = lattice_scene(97336, 0.45, "2cljq")
     sim = MDSimulation(scene_config(data.box), phase_space_data=data,
                        device=device, force_mode="cells")
     eng = sim.engine
+    q0 = sim.molecules().q.clone()
     eng.prepare_start()
-    steps = 10
-    ms, gv = timed_window(sim, steps)
-    n = len(data.mid)
+    ms, gv = timed_window(sim, 4)
+    ms_state_report("multisite-cells", sim, gv, len(data.mid), q0, ms, smi,
+                    mem0, cell_chunk=default_cell_chunk(eng.spec), steps=4)
+
+
+def slab_scene(seed=11):
+    """A 1CLJ liquid slab in vapour: a jittered 17^3 lattice (rho ~ 0.95)
+    5 sigma up the z axis of a (17.4, 17.4, 60) box, the rest empty; the
+    driver lays non-uniform z rows over it.  Returns (data, box)."""
+    from ls1_mardyn_tpu_torch.io.generators import cubic_grid
+
+    box = np.array([17.4, 17.4, 60.0])
+    k = 17
+    g = np.stack(np.meshgrid(*[np.arange(k)] * 3, indexing="ij"), -1)
+    g = g.reshape(-1, 3).astype(float)
+    data = cubic_grid(len(g), box, TEMP, seed=seed)
+    rng = np.random.default_rng(seed)
+    data.r = (g + 0.5 + rng.uniform(-0.1, 0.1, g.shape)) * (box[0] / k)
+    data.r[:, 2] += 5.0
+    return data, box
+
+
+def phase_multisite_small(device):
+    """The multi-site kernel paths on the card against the same driver on
+    the CPU (plain versions), f64, 20 steps: force_mode "ms_packed" (K5)
+    and "ms_dense" (K6) on a 2CLJ+quadrupole lattice of N = 4096, and a
+    1CLJ liquid slab in vapour on adaptive z rows under "auto" (K6):
+    T, p, Upot rtol 1e-9; r, v, q, L 1e-9."""
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+    from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import CudaMultiSitePackedPath
+    from ls1_mardyn_tpu_torch.ops.ms_path import CudaMultiSitePath
+
+    def lattice(mode):
+        def build(dev):
+            data, L = lattice_scene(4096, 0.45, "2cljq")
+            return MDSimulation(scene_config(data.box), dtype=torch.float64,
+                                phase_space_data=data, device=dev,
+                                force_mode=mode), L
+        return build
+
+    def slab(dev):
+        data, box = slab_scene()
+        return MDSimulation(scene_config(box), dtype=torch.float64,
+                            phase_space_data=data, device=dev), box
+
+    for tag, build, packed in (("ms_packed", lattice("ms_packed"), True),
+                               ("ms_dense", lattice("ms_dense"), False),
+                               ("adaptive_z", slab, False)):
+        sim, _ = build("cpu")
+        path = sim.engine._force_fn
+        check(isinstance(path, CudaMultiSitePath) and path.packed == packed
+              and (tag != "adaptive_z" or sim._z_edges is not None),
+              f"multisite-small/{tag}: not the force path it names ({path})")
+        compare_devices(f"multisite-small/{tag}", build, device,
+                        ("r", "v", "q", "L"))
+
+
+def ms_state_report(phase, sim, gv, n, q0, ms, smi, mem0=0, **extra):
+    """Checks and prints a multi-site run: finite T/p/Upot, no molecule
+    lost, T_trans within 10% of the target (the start has no angular
+    momentum, so the rotational share of T is still filling), unit
+    quaternions that turned.  peak_mem_GB is the peak device memory
+    above mem0, what the script held before the run was built."""
     T, p, U = float(gv.temperature), float(gv.pressure), float(gv.upot)
-    # the start has no angular momentum, so the rotational share of T is
-    # still filling: hold the translational temperature to the target
     T_trans = float(gv.summv2) / (3 * n)
     check(all(np.isfinite([T, p, U])) and int(float(gv.n)) == n,
-          "multisite: non-finite T/p/Upot or lost molecules")
+          f"{phase}: non-finite T/p/Upot or lost molecules")
     check(abs(T_trans / TEMP - 1) <= 0.1,
-          f"multisite: T_trans={T_trans} not within 10% of {TEMP}")
+          f"{phase}: T_trans={T_trans} not within 10% of {TEMP}")
     mol = sim.molecules()
     qn = float(((mol.q ** 2).sum(-1) - 1).abs().max())
-    turned = float((mol.q - torch.as_tensor(data.q, dtype=mol.q.dtype,
-                                            device=mol.q.device)).abs().max())
-    say("multisite", n=n, grid=eng.spec.dims, cap=eng.spec.cap,
-        cell_chunk=default_cell_chunk(eng.spec), steps=steps, T=f"{T:.6f}",
-        T_trans=f"{T_trans:.6f}", sum_iw2=f"{float(gv.sum_iw2):.4e}",
-        p=f"{p:.6f}", upot_per_mol=f"{U / n:.6f}", max_q_norm_err=f"{qn:.2e}",
-        max_q_change=f"{turned:.3f}", ms_per_step=f"{ms:.1f}",
-        peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
-        gpu=repr(smi))
+    turned = float((mol.q - q0).abs().max())
     check(qn <= 1e-5 and turned > 1e-3 and bool(torch.isfinite(mol.L).all()),
-          "multisite: quaternions not normalized or not rotating")
+          f"{phase}: quaternions not normalized or not rotating")
+    spec = getattr(sim.engine._force_fn, "spec", sim.engine.spec)
+    say(phase, n=n, grid=spec.dims, cap=spec.cap, T=f"{T:.6f}",
+        T_trans=f"{T_trans:.6f}", p=f"{p:.6f}", upot_per_mol=f"{U / n:.6f}",
+        max_q_norm_err=f"{qn:.2e}", max_q_change=f"{turned:.3f}",
+        ms_per_step=f"{ms:.3f}", updates_per_s=f"{n / ms * 1e3:.4e}",
+        peak_mem_GB=f"{(torch.cuda.max_memory_allocated() - mem0) / 1e9:.3f}",
+        gpu=repr(smi), **extra)
+
+
+def phase_multisite(device, smi):
+    """This slice's path at full width: a 2CLJ+quadrupole fluid of
+    N = 1,061,208 at rc = 6.2 through MDSimulation(force_mode="auto"),
+    which must pick K5 (warm-up and a 16-step window), then the same
+    scene under "ms_dense" through K6 (3 steps)."""
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+    from ls1_mardyn_tpu_torch.ops.cuda_ms import multisite_cell_forces
+    from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import (
+        CudaMultiSitePackedPath, multisite_cell_forces_packed)
+
+    data, L = lattice_scene(N_MS, RHO_MS, "2cljq", rc=RC_MS)
+    n = len(data.mid)
+    check(n == N_MS, "multisite: N")
+    sims, launches = {}, {}
+    for key, mode, warm, win in (("K5", "auto", 2, 16), ("K6", "ms_dense", 0, 3)):
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        sim = MDSimulation(scene_config(data.box, RC_MS), phase_space_data=data,
+                           device=device, force_mode=mode)
+        eng = sim.engine
+        path = eng._force_fn
+        check(isinstance(path, CudaMultiSitePackedPath) == (key == "K5"),
+              f"multisite/{mode}: force path {type(path).__name__}")
+        t_build = time.perf_counter() - t0
+        q0 = sim.molecules().q.clone()
+        multisite_cell_forces_packed.launches = 0
+        multisite_cell_forces.launches = 0
+        eng.prepare_start()
+        ms0 = timed_window(sim, warm)[0] if warm else 0.0
+        ms, gv = timed_window(sim, win)
+        got = {"K5": multisite_cell_forces_packed.launches,
+               "K6": multisite_cell_forces.launches}
+        check(sim.engine is eng, f"multisite/{mode}: cell capacity re-spec")
+        check(got[key] == 1 + warm + win and sum(got.values()) == got[key],
+              f"multisite/{mode}: launches {got} in {warm + win} steps")
+        ms_state_report(f"multisite/{key}", sim, gv, n, q0, ms, smi, mem0,
+                        mode=mode, construct_s=round(t_build, 2),
+                        warm_ms_per_step=f"{ms0:.3f}", window_steps=win,
+                        launches=json.dumps(got))
+        sims[key], launches[key] = sim, got[key]
+    return sims, launches
+
+
+# operations of one in-cutoff UNORDERED pair per site-pair term, by body
+# code (csrc/ms_pair.cuh: Body), counted from that source (PERF.md): the
+# site separation (12), the body, the sums on i and the reaction on j
+# (F, torque, Vi: ~24-27 each side); an erfc-screened charge pair counts
+# its exp and erfc as one operation each and 8 more
+MS_TERM_OPS = {0: 74, 1: 67, 2: 107, 3: 97, 4: 110, 5: 186, 6: 180, 7: 100,
+               8: 177, 9: 175}
+MS_SCREENED_CC_OPS = 77
+
+
+def ms_bound(mol, spec, meta, rc2, screened, in_bytes, out_elems, size):
+    """Least time the card could take for a multi-site call on this
+    state: the bytes (inputs once, output planes once) over the memory
+    rate, against the operations this data needs over the f32 peak: 8 per
+    candidate UNORDERED pair of two molecules in the same or neighbouring
+    cells and, per pair inside the cutoff, the site-pair program's terms
+    (MS_TERM_OPS, MS_SCREENED_CC_OPS).  The pairs inside the cutoff are counted by a K3
+    launch on the COM positions with eps24 = 0 and shift6 = 1, whose
+    halved u6 is the unordered count."""
+    import types
+
+    from ls1_mardyn_tpu_torch.ops.cells import CellGridSpec, bin_particles
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces_cw
+    from ls1_mardyn_tpu_torch.ops.lj_path import CudaLJPath
+
+    nx, ny, nz = spec.dims
+    occ = bin_particles(mol.r, mol.valid, spec).counts.reshape(nz, ny, nx).double()
+    nb = sum(torch.roll(occ, (dz, dy, dx), (0, 1, 2))
+             for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    candidates = (float((occ * nb).sum()) - float(occ.sum())) / 2.0
+    cap32 = -(-spec.cap // 32) * 32
+    spec32 = CellGridSpec(dims=spec.dims, box=spec.box, cap=cap32)
+    r4, _ = CudaLJPath.layout(types.SimpleNamespace(spec=spec32), mol)
+    _, u6, _ = lj_cell_forces_cw(r4, dims=spec.dims, cap=cap32,
+                                 cell_len=spec.cell_len, eps24=0.0, sig2=0.0,
+                                 shift6=1.0, rc2=rc2)
+    inside = float(u6)
+    per_pair = sum(MS_SCREENED_CC_OPS if b == 1 and screened else MS_TERM_OPS[b]
+                   for b in meta.terms()[:, 0].tolist())
+    t_bytes = (in_bytes + out_elems * size) / PEAK_BYTES * 1e3
+    t_ops = (8 * candidates + per_pair * inside) / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "candidates": candidates, "inside": inside,
+            "ops_per_inside_pair": per_pair}
+
+
+def plain_once_ms(fn):
+    """Device time of one call (the plain versions synchronise inside,
+    so a warm-up would only double the cost)."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    res = fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1), res
+
+
+def ms_times(key, kernel, plain, args, kw, nz, slab, smi, bound):
+    """Kernel (CUDA events, 5 launches) and plain version at the path's
+    shape; the plain version on a 2-row z slab of the same state first,
+    and at full width when that extrapolates to under 60 s."""
+    k_ms = cuda_ms(lambda: kernel(*args, **kw), 5)
+    s_args, s_kw = slab(2)
+    slab_ms, ref = plain_once_ms(lambda: plain(*s_args, **s_kw))
+    rel = max(ms_rel_errors(kernel(*s_args, **s_kw), ref).values())
+    full = slab_ms * nz / 2 <= 60e3
+    plain_ms = slab_ms
+    if full:
+        plain_ms, ref = plain_once_ms(lambda: plain(*args, **kw))
+        rel = max(ms_rel_errors(kernel(*args, **kw), ref).values())
+    got = kernel(*args, **kw)
+    err = float((got[0] - ref[0]).abs().max()) if full else float("nan")
+    check(rel <= 1e-5, f"{key} at its path's shape: rel err {rel}")
+    say("times", kernel=key, ms=f"{k_ms:.3f}", plain_ms=f"{plain_ms:.1f}",
+        plain_on="full width" if full else f"z slab of 2 of {nz} rows",
+        plain_slab_ms=f"{slab_ms:.1f}", max_abs_err=f"{err:.3e}",
+        rel_err=f"{rel:.3e}", bound=json.dumps(bound), gpu=repr(smi))
+    return dict(max_abs_err=err if full else rel, ms=k_ms, plain_ms=plain_ms,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+
+
+def phase_times_ms(sims, smi):
+    """K5 and K6 beside their plain versions at the shapes the full-width
+    paths gave them, each with its bound."""
+    from ls1_mardyn_tpu_torch.ops import cuda_ms, cuda_ms_packed
+
+    out = {}
+    path = sims["K5"].engine._force_fn
+    mol = sims["K5"].engine.mol
+    nx, ny, nz = path.spec.dims
+    tbl, r_i, r_j, _, _ = path._build_views(mol)
+    kw = dict(nx=nx, ny=ny, nz=nz, cap=path.spec.cap, Wp=path.Wp, Wjp=path.Wjp,
+              cell_plane=path.cell_plane, box=path.spec.box, rc2=path.rc2,
+              rc2_lj=path.rc2_lj, screen_alpha=path.screen_alpha, meta=path.meta)
+
+    def slab5(ns):
+        return ((tbl[:ns + 2].contiguous(), r_i[1:ns + 1].contiguous(),
+                 r_j[:ns + 2].contiguous()), dict(kw, nz=ns, z_halo=True))
+
+    size = r_i.element_size()
+    b5 = ms_bound(mol, path.spec, path.meta, max(path.rc2, path.rc2_lj),
+                  path.screen_alpha > 0,
+                  (tbl.numel() * 4 + (r_i.numel() + r_j.numel()) * size),
+                  r_i.shape[0] * r_i.shape[1] * 10 * r_i.shape[3], size)
+    out["K5"] = ms_times("K5", cuda_ms_packed.multisite_cell_forces_packed,
+                         cuda_ms_packed.multisite_cell_forces_packed_reference,
+                         (tbl, r_i, r_j), kw, nz, slab5, smi, b5)
+
+    path = sims["K6"].engine._force_fn
+    mol = sims["K6"].engine.mol
+    nx, ny, nz = path.spec.dims
+    r_i, _ = path.layout(mol)
+    r_j = path.x_halo(r_i).contiguous()
+    kw6 = dict(nx=nx, ny=ny, nz=nz, cap=path.spec.cap, box=path.spec.box,
+               rc2=path.rc2, rc2_lj=path.rc2_lj,
+               screen_alpha=path.screen_alpha, meta=path.meta)
+
+    def slab6(ns):
+        return ((r_i[1:ns + 1].contiguous(), r_j[:ns + 2].contiguous()),
+                dict(kw6, nz=ns, z_halo=True))
+
+    b6 = ms_bound(mol, path.spec, path.meta, max(path.rc2, path.rc2_lj),
+                  path.screen_alpha > 0,
+                  (r_i.numel() + r_j.numel()) * size,
+                  r_i.numel() // r_i.shape[2] * 10, size)
+    out["K6"] = ms_times("K6", cuda_ms.multisite_cell_forces,
+                         cuda_ms.multisite_cell_forces_reference, (r_i, r_j),
+                         kw6, nz, slab6, smi, b6)
+    return out
 
 
 def lj_bound(r_i, dims, cap, lj, out_planes, j_elems):
@@ -770,13 +1198,20 @@ def main():
     phase_k2(device)
     phase_k3(device)
     phase_k4(device)
+    phase_k5(device)
+    phase_k6(device)
     phase_small(device)
     phase_general_small(device)
+    phase_multisite_small(device)
     sim_rmm, launches = phase_main(device, smi)
     sim_gen, launches_gen = phase_general(device, smi)
     launches.update(launches_gen)
-    phase_multisite(device, smi)
+    phase_multisite_cells(device, smi)
+    sims_ms, launches_ms = phase_multisite(device, smi)
+    launches.update(launches_ms)
     times = phase_times(sim_rmm, sim_gen, smi)
+    del sim_rmm, sim_gen
+    times.update(phase_times_ms(sims_ms, smi))
     kernels = []
     for key, (name, src, tpu) in KERNELS.items():
         check(launches[key] > 0, f"{key} was launched by no path")

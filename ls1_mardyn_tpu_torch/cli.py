@@ -29,11 +29,15 @@ def build_parser():
                    help="torch device (default cuda; fails when CUDA is "
                         "absent unless --device cpu is given)")
     p.add_argument("--precision", choices=("f32", "f64"), default="f32")
-    p.add_argument("--force-mode", choices=("auto", "pallas", "cells", "rmm"),
+    p.add_argument("--force-mode",
+                   choices=("auto", "pallas", "ms_packed", "ms_dense", "cells",
+                            "rmm"),
                    default="auto",
                    help="auto: RMM engine for 1CLJ scenes, else the general "
-                        "engine; pallas: 1CLJ cell kernels on the general "
-                        "engine; cells: plain general multi-site traversal")
+                        "engine; pallas: the cell kernels on the general "
+                        "engine; ms_packed / ms_dense: the packed (K5) / "
+                        "dense (K6) multi-site kernel; cells: plain general "
+                        "multi-site traversal")
     p.add_argument("--print-every", type=int, default=100)
     return p
 

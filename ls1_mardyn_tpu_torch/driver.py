@@ -9,14 +9,17 @@ plugins, logging, checkpoints and timers.
 
 Two engines: single-component 1CLJ scenes run the RMM dense engine
 (rmm_engine.RMMEngine, kernels K1/K2); everything else, and every scene
-under force_mode "pallas" or "cells", runs the general single-device
-engine (simulation.SingleChipSimulation) with one of three force paths:
-the 1CLJ cell kernels K3/K4 (ops/lj_path.CudaLJPath), the N^2 oracle
+under force_mode "pallas", "ms_packed", "ms_dense" or "cells", runs the
+general single-device engine (simulation.SingleChipSimulation) with one
+of four force paths: the 1CLJ cell kernels K3/K4 (ops/lj_path.CudaLJPath),
+the multi-site kernels K5 (occupancy-packed rows,
+ops/cuda_ms_packed.CudaMultiSitePackedPath) and K6 (dense cap-padded
+rows, ops/ms_path.CudaMultiSitePath) for multi-component, multi-site and
+polar scenes and for 1CLJ scenes on non-uniform z rows, the N^2 oracle
 sweep for small scenes with huge cutoffs, or the plain general
-multi-site cell traversal.  A scene that the JAX driver would hand to
-its multi-site kernels, and the features of later slices (plugins,
-muVT, long-range solvers), raise NotImplementedError naming the ROADMAP
-slice that brings them.
+multi-site cell traversal ("cells").  The features of later slices
+(plugins, muVT, long-range solvers) raise NotImplementedError naming the
+ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
@@ -35,8 +38,13 @@ from ls1_mardyn_tpu_torch.models.components import ComponentTable
 from ls1_mardyn_tpu_torch.models.interaction import PairParams
 from ls1_mardyn_tpu_torch.models.oracle import compute_forces_n2
 from ls1_mardyn_tpu_torch.ops.cells import CellGridSpec, adaptive_z_edges
+from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import (
+    CudaMultiSitePackedPath,
+    pick_ms_grid_packed,
+)
 from ls1_mardyn_tpu_torch.ops.lj_path import CudaLJPath
 from ls1_mardyn_tpu_torch.ops.lrc import HomogeneousLRC, NoLRC
+from ls1_mardyn_tpu_torch.ops.ms_path import CudaMultiSitePath, pick_ms_grid
 from ls1_mardyn_tpu_torch.ops.rmm import CellCapacityError
 from ls1_mardyn_tpu_torch.ops.thermostat import TemperatureControlRegion
 from ls1_mardyn_tpu_torch.rmm_engine import RMMEngine, pick_rmm_grid
@@ -45,7 +53,7 @@ from ls1_mardyn_tpu_torch.state import MoleculeState, resolve_device
 from ls1_mardyn_tpu_torch.utils.logger import global_log
 from ls1_mardyn_tpu_torch.utils.timers import TimerProfiler
 
-_FORCE_MODES = ("auto", "pallas", "cells", "rmm")
+_FORCE_MODES = ("auto", "pallas", "ms_packed", "ms_dense", "cells", "rmm")
 # scenes up to this size may run the N^2 oracle sweep
 _N2_MAX = 16384
 
@@ -71,10 +79,12 @@ class MDSimulation:
         self,
         config: XMLConfig,
         dtype: torch.dtype = torch.float32,
-        # auto | pallas | cells | rmm.  "pallas" keeps the JAX driver's
-        # name for "the 1CLJ cell kernels on the general engine"; here
-        # "cells" always runs the general traversal (the JAX driver
-        # replaces it by its N^2 sweep up to 16384 molecules)
+        # auto | pallas | ms_packed | ms_dense | cells | rmm.  "pallas"
+        # keeps the JAX driver's name for "the cell kernels on the
+        # general engine" (K3/K4 for 1CLJ, K5/K6 otherwise); ms_packed /
+        # ms_dense ask for K5 / K6; here "cells" always runs the general
+        # traversal (the JAX driver replaces it by its N^2 sweep up to
+        # 16384 molecules)
         force_mode: str = "auto",
         cell_cap: int = 0,
         phase_space_data: Optional[PhaseSpaceData] = None,
@@ -82,8 +92,6 @@ class MDSimulation:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if force_mode in ("ms_packed", "ms_dense"):
-            raise _out_of_slice(f"force_mode={force_mode!r}", "slice 3")
         if force_mode not in _FORCE_MODES:
             raise ValueError(
                 f"force_mode={force_mode!r}: one of {', '.join(_FORCE_MODES)}"
@@ -175,6 +183,8 @@ class MDSimulation:
         # scenes) and leave drift headroom
         self._z_edges = None
         cap_floor = cell_cap
+        # an explicit capacity skips the multi-site grid choosers
+        self._cap_forced = bool(cell_cap)
         if not cell_cap:
             cell_cap = self._measure_cell_cap(data, config, n)
         sim_cfg = self._sim_config(data, config, cell_cap)
@@ -377,13 +387,19 @@ class MDSimulation:
 
     def _pick_force_fn(self, data, config, cell_cap: int, n: int, is_1clj: bool):
         """The general engine's force path: CudaLJPath (kernels K3/K4),
-        the N^2 oracle sweep, or None for the built-in general cell
-        traversal."""
+        CudaMultiSitePackedPath (K5) or CudaMultiSitePath (K6), the N^2
+        oracle sweep, or None for the built-in general cell traversal.
+        A static rule, taken and logged before any launch."""
         force_fn = None
-        if n and self._force_mode in ("auto", "pallas"):
+        if n and self._force_mode in ("auto", "pallas", "ms_packed", "ms_dense"):
             spec = CellGridSpec.create(
                 tuple(self.box), config.lj_cutoff, cap=cell_cap
             )
+            if self._z_edges:
+                spec = dataclasses.replace(
+                    spec, dims=(spec.dims[0], spec.dims[1],
+                                len(self._z_edges) - 1),
+                    z_edges=tuple(self._z_edges))
             # cost-based path choice (the TraversalTuner role,
             # src/particleContainer/TraversalTuner.h:135): tiny dense
             # scenes with huge cutoffs (3x3x3 cells at cap 256) make the
@@ -405,15 +421,7 @@ class MDSimulation:
                     spec.dims, spec.cap,
                 )
             else:
-                # the JAX driver hands these to its multi-site kernels
-                # (non-uniform z rows included); they do not slide onto
-                # the plain traversal unasked
-                raise _out_of_slice(
-                    "a multi-component, multi-site or polar scene, or a "
-                    "1CLJ scene on non-uniform z rows, on the multi-site "
-                    "cell kernels (force_mode='cells' runs it on the plain "
-                    "general traversal)", "slice 3",
-                )
+                force_fn = self._multisite_path(data, config, spec)
         if force_fn is None and (
             n == 0 or (self._force_mode != "cells" and n <= _N2_MAX)
         ):
@@ -436,6 +444,49 @@ class MDSimulation:
             )
         elif force_fn is None:
             global_log.info("force path: general multi-site cell traversal")
+        return force_fn
+
+    def _multisite_path(self, data, config, spec: CellGridSpec):
+        """The multi-site kernel path (the JAX driver's
+        driver.py:538-610): multi-component, multi-site and polar
+        scenes, and 1CLJ scenes on non-uniform z rows.  The packed K5
+        wherever its rows can run; the dense K6 when asked for
+        ("ms_dense"), on non-uniform z rows unless K5 is asked for, and
+        on a grid below 3 cells on an axis, which the packed rows' wrap
+        halos cannot take.  Each kernel's grid chooser sizes its grid
+        unless a cell_cap was given or z rows are non-uniform (the given
+        grid runs)."""
+        # the cutoff is COM-based for LJ and electrostatics alike: the
+        # cells must span the longer of the two
+        rc = max(config.cutoff, config.lj_cutoff)
+        if min(spec.cell_len) < rc:
+            base = CellGridSpec.create(tuple(self.box), rc, cap=spec.cap)
+            spec = dataclasses.replace(
+                spec, dims=base.dims[:2] + spec.dims[2:]
+                if spec.z_edges else base.dims)
+        mode = self._force_mode
+        use_packed = mode == "ms_packed" or (
+            mode != "ms_dense" and not self._z_edges)
+        if not self._z_edges and not self._cap_forced:
+            pick = pick_ms_grid_packed(data.r, self.box, rc) if use_packed \
+                else None
+            if pick is None:
+                pick = pick_ms_grid(data.r, self.box, rc)
+            if pick is not None:
+                spec = dataclasses.replace(spec, dims=pick[0], cap=pick[1])
+        if use_packed and min(spec.dims) < 3:
+            global_log.info(
+                "force path: grid %s is below 3 cells on an axis; the "
+                "packed rows need 3, the dense kernel runs", spec.dims)
+            use_packed = False
+        cls = CudaMultiSitePackedPath if use_packed else CudaMultiSitePath
+        force_fn = cls(self.table, spec)
+        global_log.info(
+            "force path: multi-site kernel %s, grid %s, cap %d, %d planes",
+            "K5 (occupancy-packed)" if use_packed else "K6 (dense)",
+            spec.dims, spec.cap,
+            force_fn.Pb if use_packed else force_fn.meta.P,
+        )
         return force_fn
 
     def _swap_perm(self):

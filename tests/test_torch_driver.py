@@ -21,6 +21,8 @@ import torch
 from ls1_mardyn_tpu.driver import MDSimulation as JaxMD
 from ls1_mardyn_tpu_torch.driver import MDSimulation
 from ls1_mardyn_tpu_torch.io.xml_config import PluginSpec, read_xml_config
+from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import CudaMultiSitePackedPath
+from ls1_mardyn_tpu_torch.ops.ms_path import CudaMultiSitePath
 from ls1_mardyn_tpu_torch.ops.rmm import CellCapacityError
 
 # pytest-xdist puts several workers on one CPU: one intra-op thread
@@ -199,33 +201,37 @@ def _cfg(tmp_path, n=1200, **kw):
 
 @pytest.mark.parametrize(
     "case,slice_",
-    [("charges", 3), ("charges_pallas", 3), ("muvt", 5), ("plugin", 6),
-     ("ewald", 4), ("planar", 4), ("force_mode", 3)],
+    [("muvt", 5), ("plugin", 6), ("ewald", 4), ("planar", 4)],
 )
 def test_out_of_slice_scene_raises(tmp_path, case, slice_):
-    """What later slices bring raises, naming the slice.  A multi-site
-    scene under "auto" or "pallas" (the JAX driver hands it to its
-    multi-site kernels) does not slide onto the plain traversal."""
-    kw = {}
-    if case.startswith("charges"):
-        # large enough that the cost rule does not pick the N^2 sweep
-        cfg = _cfg(tmp_path, n=3000, extra_site=CHARGE)
-        if case == "charges_pallas":
-            kw["force_mode"] = "pallas"
-    elif case == "muvt":
-        cfg = _cfg(tmp_path, ensemble="muVT")
-    else:
-        cfg = _cfg(tmp_path)
+    """What later slices bring raises, naming the slice."""
+    cfg = _cfg(tmp_path, ensemble="muVT") if case == "muvt" else _cfg(tmp_path)
     if case == "plugin":
         cfg.output_plugins.append(PluginSpec("ResultWriter", {}))
     elif case == "ewald":
         cfg.electrostatic_solver = "Ewald"
     elif case == "planar":
         cfg.longrange = "planar"
-    elif case == "force_mode":
-        kw["force_mode"] = "ms_packed"
     with pytest.raises(NotImplementedError, match=f"ROADMAP slice {slice_}"):
-        MDSimulation(cfg, dtype=torch.float64, device="cpu", **kw)
+        MDSimulation(cfg, dtype=torch.float64, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "mode,kernel",
+    [("auto", "K5"), ("pallas", "K5"), ("ms_dense", "K6")],
+    ids=["charges", "charges_pallas", "force_mode"],
+)
+def test_multisite_scene_takes_the_multisite_kernels(tmp_path, mode, kernel):
+    """A multi-site scene under "auto" or "pallas" goes to the multi-site
+    kernels, as in the JAX driver: the packed K5 wherever its rows can
+    run; "ms_dense" asks for K6.  It does not slide onto the plain
+    traversal."""
+    # large enough that the cost rule does not pick the N^2 sweep
+    cfg = _cfg(tmp_path, n=3000, extra_site=CHARGE)
+    sim = MDSimulation(cfg, dtype=torch.float64, device="cpu", force_mode=mode)
+    path = sim.engine._force_fn
+    assert type(path) is {"K5": CudaMultiSitePackedPath,
+                          "K6": CudaMultiSitePath}[kernel]
 
 
 def test_rmm_mode_needs_1clj_scene(tmp_path):
