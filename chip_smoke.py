@@ -9,8 +9,10 @@ checks that every kernel of a path was launched by it:
   - a 1CLJ NVT fluid of N = 4,194,304 molecules (rho 0.8, rc 2.5, T 1.1)
     started from the committed equilibrated seed
     assets/bench_seed_524288.npz tiled 2x2x2: MDSimulation -> RMMEngine
-    -> RMMSimulation (kernels K1, K2) and MDSimulation(force_mode=
-    "pallas") -> SingleChipSimulation -> CudaLJPath (kernels K3, K4);
+    -> RMMSimulation (kernels K1, K2; through its kernel switches K4, K3,
+    K7, K8, K9), the same state packed into pencils (K10), and
+    MDSimulation(force_mode="pallas") -> SingleChipSimulation ->
+    CudaLJPath (kernels K3, K4);
   - a rigid 2CLJ+quadrupole (CO2-class) fluid of N = 1,061,208 molecules
     (rho 0.45, rc 6.2, T 1.1): MDSimulation(force_mode="auto") ->
     SingleChipSimulation -> CudaMultiSitePackedPath (kernel K5), and
@@ -37,6 +39,16 @@ non-zero and never prints the result line):
   K6       dense multi-site forces vs plain (limits as K5): the mixture
            at cap 32 and 160, the screened scene, explicit y + z halo
            rows (bit-identical to the wrapped result)
+  K7       lane-major-j forces vs plain (K4's, cell-local) on the K3
+           cells, cap 32 and 64, f32 and f64 (limits as K1), with the
+           reduction per row and per i slot (defer)
+  K8       Newton-3rd-law forces vs plain on the cut RMM state read in
+           place and on 3x3x3 cells (the smallest grid it takes); against
+           K1 reported
+  K9       z-banded forces vs plain on the cut RMM state's 8-plane
+           tensor (sentinel fill), plain and gram
+  K10      packed-pencil forces vs plain on the cut state packed into
+           pencils, with wrap groups at both x ends
   small    the RMM driver on the card vs on the CPU (plain versions),
            N=1024, f64, 20 steps: T, p, Upot rtol 1e-9, r and v 1e-9
   general-small  the general engine on the card vs on the CPU, f64, 20
@@ -47,6 +59,11 @@ non-zero and never prints the result line):
            vapour on adaptive z rows under "auto" (K6)
   main     the RMM path at N=4,194,304 for rebin_every+2 steps and a
            timed window of rebin_every steps
+  main/<switch>  3 steps each through RMMSimulation's switches, set on
+           md.engine.sim: row (K4), cw (K3), lanej (K7), n3l (K8), zb and
+           zb_gram (K9); the selected kernel ran every step, T within 10%
+  packed   pack the main state into pencils, tables, K10, unpack:
+           feasible, Wp, forces against K1 on the same state
   general  the general engine at N=4,194,304: MDSimulation(
            force_mode="pallas"), a warm-up and a timed window of 16
            steps (K3 once per step), then 3 steps with the path's cw
@@ -57,11 +74,11 @@ non-zero and never prints the result line):
            a 16-step window, then 3 steps under "ms_dense" (K6); T_trans
            within 10%, unit quaternions, peak memory above what the
            script held before
-  times    K1..K6 against their plain versions at the shapes their paths
-           gave them (CUDA events), and each kernel's bound; K3 and K4
-           also against plain on K1's grid (56,60,60); the multi-site
-           plain versions on a 2-row z slab, and at full width when that
-           extrapolates to under 60 s
+  times    K1..K10 against their plain versions at the shapes their
+           paths gave them (CUDA events), and each kernel's bound; K3 and
+           K4 also against plain on K1's grid (56,60,60), K7-K10 on K1's
+           state beside K1; the multi-site plain versions on a 2-row z
+           slab, and at full width when that extrapolates to under 60 s
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
 result.
@@ -81,7 +98,7 @@ SEED = os.path.join(HERE, "assets", "bench_seed_524288.npz")
 N_MAIN = 4_194_304
 RHO, RC, TEMP, DT = 0.8, 2.5, 1.1, 0.002
 LIBS = ("lj_cells", "rebin_shift", "lj_cells_cw", "lj_cells_row", "ms_dense",
-        "ms_packed")
+        "ms_packed", "lj_cells_lanej", "lj_cells_n3l", "lj_cells_zb", "lj_packed")
 # name, source, TPU kernel it replaces
 KERNELS = {
     "K1": ("K1 lj_cell_forces", "ls1_mardyn_tpu_torch/csrc/lj_cells.cu",
@@ -97,7 +114,25 @@ KERNELS = {
            "ls1_mardyn_tpu/ops/pallas_ms_packed.py:485"),
     "K6": ("K6 multisite_cell_forces", "ls1_mardyn_tpu_torch/csrc/ms_dense.cu",
            "ls1_mardyn_tpu/ops/pallas_multisite.py:663"),
+    "K7": ("K7 lj_cell_forces_lanej", "ls1_mardyn_tpu_torch/csrc/lj_cells_lanej.cu",
+           "ls1_mardyn_tpu/ops/pallas_lj.py:649"),
+    "K8": ("K8 lj_cell_forces_n3l", "ls1_mardyn_tpu_torch/csrc/lj_cells_n3l.cu",
+           "ls1_mardyn_tpu/ops/pallas_lj.py:952"),
+    "K9": ("K9 lj_cell_forces_zb", "ls1_mardyn_tpu_torch/csrc/lj_cells_zb.cu",
+           "ls1_mardyn_tpu/ops/pallas_lj.py:1273"),
+    "K10": ("K10 lj_forces_packed", "ls1_mardyn_tpu_torch/csrc/lj_packed.cu",
+            "ls1_mardyn_tpu/ops/pallas_packed.py:517"),
 }
+# the RMM engine's kernel switches (ops/rmm.py), each driven for 3 steps
+# on the main path: the kernel it selects, and the switches it sets
+RMM_SWITCHES = (
+    ("K4", "row", dict(cw=False)),
+    ("K3", "cw", dict(cwn3l=False)),
+    ("K7", "lanej", dict(cw=False, lanej=True)),
+    ("K8", "n3l", dict(cw=False, n3l=True)),
+    ("K9", "zb", dict(cw=False, zb=True)),
+    ("K9", "zb_gram", dict(cw=False, zb=True, zb_gram=True)),
+)
 # the full-width multi-site scene: a 2CLJ+quadrupole (CO2-class) fluid on
 # a 102^3 lattice at the cutoff of ls1's CO2 example (33.07 a0 = 6.2 sigma)
 N_MS, RHO_MS, RC_MS = 1_061_208, 0.45, 6.2
@@ -386,6 +421,136 @@ def phase_k4(device):
             check(max(errs.values()) <= lim and loose <= 5e-3,
                   f"K4 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
     say("K4", launches=lj_cell_forces_row.launches)
+
+
+def phase_k7(device):
+    """K7 vs its plain version (K4's, cell-local mode) with the reduction
+    per neighbour row and per i slot (defer)."""
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces_row_reference
+    from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import lj_cell_forces_lanej
+
+    for dtype, lim in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        for cap in (32, 64):
+            r_i, cl, lj = cut_planes(cap, dtype, device)
+            nd = r_i.shape[0]
+            r_j = x_halo(r_i, nd, cap)
+            kw = dict(dims=(nd,) * 3, cap=cap, box=tuple(c * nd for c in cl), **lj)
+            ref = lj_cell_forces_row_reference(r_i, r_j, local_coords=True, **kw)
+            errs = {f"defer={d}": max(rel_errors(
+                lj_cell_forces_lanej(r_i, r_j, defer=d, **kw), ref))
+                for d in (True, False)}
+            say("K7", dtype=str(dtype).split(".")[1], cap=cap, grid=(nd,) * 3,
+                rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
+                limit=lim)
+            check(max(errs.values()) <= lim,
+                  f"K7 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
+    say("K7", launches=lj_cell_forces_lanej.launches)
+
+
+def phase_k8(device):
+    """K8 vs its plain version on the RMM state's planes read in place,
+    and on 3x3x3 cells (the smallest grid it takes) as a periodic grid
+    of their own; K8 against K1 on the same state is reported (each pair
+    once against each pair from both sides: two roundings of r^2, so a
+    pair at the cutoff may count on one side only)."""
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces
+    from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import (
+        lj_cell_forces_n3l, lj_cell_forces_n3l_reference)
+
+    for dtype, lim in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        for cap in (32, 64):
+            sim = cut_sim(cap, dtype, device)
+            r4 = sim.state.planes[:, :, :4, :]
+            cases = {"state": (r4, sim.spec.dims),
+                     "3x3x3": (sub_block(r4, cap, 3, 3, 3), (3, 3, 3))}
+            errs = {}
+            for tag, (r, dims) in cases.items():
+                kw = dict(dims=dims, cap=cap, cell_len=sim.cell_len, eps24=sim.eps24,
+                          sig2=sim.sig2, shift6=sim.shift6, rc2=sim.rc2)
+                errs[tag] = max(rel_errors(lj_cell_forces_n3l(r, **kw),
+                                           lj_cell_forces_n3l_reference(r, **kw)))
+            kw = dict(dims=sim.spec.dims, cap=cap, cell_len=sim.cell_len,
+                      eps24=sim.eps24, sig2=sim.sig2, shift6=sim.shift6, rc2=sim.rc2)
+            vs_k1 = rel_errors(lj_cell_forces_n3l(r4, **kw), lj_cell_forces(r4, **kw))
+            say("K8", dtype=str(dtype).split(".")[1], cap=cap, grid=sim.spec.dims,
+                rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
+                limit=lim, vs_K1=json.dumps([f"{v:.2e}" for v in vs_k1]))
+            check(max(errs.values()) <= lim,
+                  f"K8 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
+    say("K8", launches=lj_cell_forces_n3l.launches)
+
+
+def phase_k9(device):
+    """K9 vs its plain version on the RMM state's 8-plane tensor read in
+    place (empty slots carry the sentinel fill), plain and gram."""
+    from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import (
+        lj_cell_forces_zb, lj_cell_forces_zb_reference)
+
+    for dtype, lim in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        for cap in (32, 64):
+            sim = cut_sim(cap, dtype, device)
+            check(sim.sentinel and sim.state.planes.shape[2] == 8,
+                  "K9: the cut state carries no sentinel fill")
+            r4 = sim.state.planes[:, :, :4, :]
+            kw = dict(dims=sim.spec.dims, cap=cap, cell_len=sim.cell_len,
+                      eps24=sim.eps24, sig2=sim.sig2, shift6=sim.shift6, rc2=sim.rc2)
+            errs = {f"gram={g}": max(rel_errors(
+                lj_cell_forces_zb(r4, gram=g, **kw),
+                lj_cell_forces_zb_reference(r4, gram=g, **kw))) for g in (False, True)}
+            say("K9", dtype=str(dtype).split(".")[1], cap=cap, grid=sim.spec.dims,
+                rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}), limit=lim)
+            check(max(errs.values()) <= lim,
+                  f"K9 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
+    # cap 512 in f64 stages 442 KB of cells a block: the launch must raise
+    big = torch.zeros((3, 3, 4, 3 * 512), dtype=torch.float64, device=device)
+    try:
+        lj_cell_forces_zb(big, **dict(kw, dims=(3, 3, 3), cap=512))
+        raised = False
+    except RuntimeError:
+        raised = True
+    check(raised, "K9 launched with more shared memory than a block has")
+    say("K9", launches=lj_cell_forces_zb.launches, cap512_raises=raised)
+
+
+def packed_views(planes, dims, cap):
+    """The RMM state `planes` as packed pencils (Wp the smallest multiple
+    of 32 lanes that holds every pencil) with their tables: (packed, occ,
+    starts, tab, meta, feasible, Wp)."""
+    from ls1_mardyn_tpu_torch.ops.cuda_packed import build_tables, pack_pencils
+
+    nx = dims[0]
+    Wp = -(-int((planes[:, :, 3] > 0.5).sum(-1).max()) // 32) * 32
+    packed, _, occ, starts, cnt, ovf = pack_pencils(
+        planes, torch.zeros_like(planes[:, :, :3]), nx, cap, Wp)
+    check(not bool(ovf), "packed pencils overflow")
+    tab, meta, feas = build_tables(occ, starts, cnt, nx=nx, Wp=Wp)
+    return packed, occ, starts, tab, meta, bool(feas), Wp
+
+
+def phase_k10(device):
+    """K10 vs its plain version on the cut RMM state packed into
+    pencils, whose first and last groups take the periodic-x wrap pass."""
+    from ls1_mardyn_tpu_torch.ops.cuda_packed import (
+        M_EHI, M_ELO, lj_forces_packed, lj_forces_packed_reference)
+
+    for dtype, lim in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        for cap in (32, 64):
+            sim = cut_sim(cap, dtype, device)
+            nx, ny, nz = sim.spec.dims
+            packed, _, _, tab, meta, feas, Wp = packed_views(
+                sim.state.planes, sim.spec.dims, cap)
+            wraps = (int(meta[:, :, 0, M_ELO].sum()), int(meta[:, :, 0, M_EHI].sum()))
+            check(min(wraps) > 0, "K10: no wrap groups in the state")
+            pos4 = packed[:, :, :4].contiguous()
+            kw = dict(nx=nx, ny=ny, nz=nz, Wp=Wp, box=sim.spec.box, eps24=sim.eps24,
+                      sig2=sim.sig2, shift6=sim.shift6, rc2=sim.rc2)
+            err = max(rel_errors(lj_forces_packed(pos4, tab, meta, **kw),
+                                 lj_forces_packed_reference(pos4, tab, meta, **kw)))
+            say("K10", dtype=str(dtype).split(".")[1], cap=cap, grid=sim.spec.dims,
+                Wp=Wp, feasible=feas, wrap_groups=wraps, rel=f"{err:.2e}", limit=lim)
+            check(err <= lim,
+                  f"K10 disagrees with its plain version ({dtype}, cap {cap}): {err}")
+    say("K10", launches=lj_forces_packed.launches)
 
 
 def ms_scene(kind, n, box, rc, dtype, device, seed=1, thin_upper_z=0.0):
@@ -712,6 +877,78 @@ def phase_main(device, smi):
     return sim, launches
 
 
+def phase_switches(sim, smi):
+    """The main path through each kernel switch of RMMSimulation, set on
+    md.engine.sim: 3 steps each, every LJ counter set to 0 just before
+    and read just after; the selected kernel ran every step and no other,
+    T within 10%.  The switches are restored afterwards."""
+    from ls1_mardyn_tpu_torch.ops import cuda_lj, cuda_lj_variants as V
+
+    rsim = sim.engine.sim
+    names = ("cw", "cwn3l", "lanej", "lanej_defer", "n3l", "zb", "zb_gram")
+    defaults = {k: getattr(rsim, k) for k in names}
+    counters = {"K1": cuda_lj.lj_cell_forces, "K3": cuda_lj.lj_cell_forces_cw,
+                "K4": cuda_lj.lj_cell_forces_row, "K7": V.lj_cell_forces_lanej,
+                "K8": V.lj_cell_forces_n3l, "K9": V.lj_cell_forces_zb}
+    launches = {}
+    for key, tag, switches in RMM_SWITCHES:
+        for k, v in {**defaults, **switches}.items():
+            setattr(rsim, k, v)
+        for c in counters.values():
+            c.launches = 0
+        ms, gv = timed_window(sim, 3)
+        got = {k: c.launches for k, c in counters.items()}
+        T, p, U = check_globals(f"main/{tag}", gv, N_MAIN)
+        say("main", switch=tag, kernel=key, steps=3, ms_per_step=f"{ms:.3f}",
+            T=f"{T:.6f}", p=f"{p:.6f}", upot_per_mol=f"{U / N_MAIN:.6f}",
+            launches=json.dumps(got), gpu=repr(smi))
+        check(got[key] == 3 and sum(got.values()) == 3,
+              f"main/{tag}: launches {got} in 3 steps")
+        launches[key] = launches.get(key, 0) + got[key]
+    for k, v in defaults.items():
+        setattr(rsim, k, v)
+    return launches
+
+
+def phase_packed(sim, smi):
+    """K10 on the main path's state: pack the RMM planes into pencils,
+    build the tables, K10, unpack; the forces against K1 on the same
+    state.  In f32 the two recentre the coordinates differently (K10 on
+    the group's base cell), so pairs within an ulp of the cutoff may
+    count in one and not the other: a flip moves a force by the unshifted
+    LJ step at rc (0.039 eps/sigma), ~2e-4 of max|F| (PERF.md)."""
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces
+    from ls1_mardyn_tpu_torch.ops.cuda_packed import lj_forces_packed, unpack_pencils
+
+    rsim = sim.engine.sim
+    planes = rsim.state.planes
+    nx, ny, nz = rsim.spec.dims
+    cap = rsim.spec.cap
+    lj_forces_packed.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    packed, occ, starts, tab, meta, feas, Wp = packed_views(planes, rsim.spec.dims, cap)
+    out = lj_forces_packed(packed[:, :, :4].contiguous(), tab, meta, nx=nx, ny=ny,
+                           nz=nz, Wp=Wp, box=rsim.spec.box, eps24=rsim.eps24,
+                           sig2=rsim.sig2, shift6=rsim.shift6, rc2=rsim.rc2)
+    _, f = unpack_pencils(packed, out[0], occ, starts, nx, cap)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = lj_forces_packed.launches
+    ref = lj_cell_forces(planes[:, :, :4], dims=rsim.spec.dims, cap=cap,
+                         cell_len=rsim.cell_len, eps24=rsim.eps24, sig2=rsim.sig2,
+                         shift6=rsim.shift6, rc2=rsim.rc2)
+    w = planes[:, :, 3:4] > 0.5
+    errs = rel_errors((torch.where(w, f, 0.0), out[1], out[2]), ref)
+    say("packed", grid=rsim.spec.dims, cap=cap, Wp=Wp, feasible=feas,
+        pack_tables_K10_unpack_s=round(secs, 3),
+        rel_vs_K1=json.dumps([f"{e:.2e}" for e in errs]), launches=n,
+        gpu=repr(smi))
+    check(n == 1 and errs[0] <= 1e-3 and max(errs[1:]) <= 1e-5,
+          f"K10 on the main state against K1: {errs}, launches {n}")
+    return {"K10": n}
+
+
 def phase_general(device, smi):
     """This slice's path at full width: the general engine with the
     1CLJ kernel path on the main path's scene."""
@@ -1035,7 +1272,7 @@ def phase_times_ms(sims, smi):
     return out
 
 
-def lj_bound(r_i, dims, cap, lj, out_planes, j_elems):
+def lj_bound(r_i, dims, cap, lj, out_planes, j_elems, nbytes=None):
     """Least time the card could take for an LJ cell-force call on these
     inputs: bytes (inputs read once, the force planes written once)
     over the memory rate, against the operations this data needs over
@@ -1047,7 +1284,8 @@ def lj_bound(r_i, dims, cap, lj, out_planes, j_elems):
     pair inside the cutoff (22 for the LJ term and the sums on i, 3 for
     the reaction on j).  The pairs inside the cutoff are counted by a
     launch with eps24 = 0 and shift6 = 1, whose halved u6 is the
-    unordered count."""
+    unordered count.  `nbytes` replaces the byte count where the inputs
+    are not the dense planes (K10's packed pencils and tables)."""
     from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces_cw
 
     nx, ny, nz = dims
@@ -1061,11 +1299,13 @@ def lj_bound(r_i, dims, cap, lj, out_planes, j_elems):
         cell_len=lj["cell_len"], eps24=0.0, sig2=0.0, shift6=1.0, rc2=lj["rc2"])
     inside = float(u6)
     size = r_i.element_size()
-    t_bytes = (r_i.numel() + j_elems + out_planes * r_i.numel() // 4) * size \
-        / PEAK_BYTES * 1e3
+    if nbytes is None:
+        nbytes = (r_i.numel() + j_elems + out_planes * r_i.numel() // 4) * size
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = (8 * candidates + 25 * inside) / PEAK_F32_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops,
             "candidates": candidates, "inside": inside}
 
 
@@ -1185,10 +1425,109 @@ def phase_times(sim_rmm, sim_gen, smi):
             r1, cell_len=rsim.cell_len, **kw1), 10),
         K4_ms="%.3f" % cuda_ms(lambda: cuda_lj.lj_cell_forces_row(
             r1, rj1, box=rsim.spec.box, local_coords=True, **kw1), 10))
+    out.update(variant_times(rsim, r4, smi, lj_times))
+    return out
+
+
+def packed_pair_lanes(pos4, meta, nx):
+    """Pair lanes K10 walks on this state: per group of 32 lanes, its live
+    i lanes times the j lanes of its cell range in each forward pencil,
+    and in the wrap passes (csrc/lj_packed.cu)."""
+    from ls1_mardyn_tpu_torch.ops.cuda_packed import GSZ, POFFS
+
+    nz, ny, _, Wp = pos4.shape
+    dev = pos4.device
+    cnt = meta[:, :, 0, 3].long()
+    q = torch.arange(Wp, device=dev)
+    cx = torch.where(q < cnt[..., None], pos4[:, :, 3].long(), nx)
+    starts = torch.searchsorted(
+        cx.reshape(-1, Wp).contiguous(),
+        torch.arange(nx + 1, device=dev).expand(nz * ny, -1).contiguous(),
+    ).reshape(nz, ny, nx + 1)
+    first = torch.arange(0, Wp, GSZ, device=dev).expand(nz, ny, -1)
+    n_i = torch.clamp(cnt[..., None] - first, 0, GSZ)
+    last = torch.clamp(torch.minimum(first + GSZ - 1, cnt[..., None] - 1), min=0)
+    cf, cl = torch.gather(cx, 2, first), torch.gather(cx, 2, last)
+    lo = torch.clamp(cf - 1, min=0)
+    hi = torch.clamp(cl + 1, max=nx - 1)
+    total = 0
+    for dz, dy in POFFS:
+        sk = torch.roll(starts, (-dz, -dy), (0, 1))
+        main = torch.gather(sk, 2, hi + 1) - torch.gather(sk, 2, lo)
+        wrap = (cf == 0) * (sk[..., nx] - sk[..., nx - 1])[..., None] \
+            + (cl == nx - 1) * (sk[..., 1] - sk[..., 0])[..., None]
+        total += int((n_i * (main + wrap)).sum())
+    return total
+
+
+def variant_times(rsim, r4, smi, lj_times):
+    """K7-K10 beside their plain versions on the RMM state K1 was timed
+    on (K1's grid; K7 with a copied i view and its x halo, K10 on the
+    state packed into pencils).  They compute K1's physics, so K1's
+    bound; `ms` without u6/virial, as the RMM path runs most steps."""
+    import functools
+
+    from ls1_mardyn_tpu_torch.ops import cuda_lj, cuda_lj_variants as V
+    from ls1_mardyn_tpu_torch.ops import cuda_packed as PK
+
+    out = {}
+    dims, cap = rsim.spec.dims, rsim.spec.cap
+    nx, ny, nz = dims
+    lj = dict(eps24=rsim.eps24, sig2=rsim.sig2, shift6=rsim.shift6, rc2=rsim.rc2)
+    local = dict(dims=dims, cap=cap, cell_len=rsim.cell_len, **lj)
+    r_i = r4.contiguous()
+    r_j = torch.cat([r_i[..., (nx - 1) * cap:], r_i, r_i[..., :cap]], -1)
+    packed, _, _, tab, meta, feas, Wp = packed_views(rsim.state.planes, dims, cap)
+    pos4 = packed[:, :, :4].contiguous()
+    size = r4.element_size()
+    p_bytes = (pos4.numel() + 3 * pos4.numel() // 4) * size \
+        + (tab.numel() + meta.numel()) * 4
+    row_ref = functools.partial(cuda_lj.lj_cell_forces_row_reference,
+                                local_coords=True)
+    k1_ms = cuda_ms(lambda: cuda_lj.lj_cell_forces(
+        r4, **dict(local, compute_macro=False)), 10)
+    cases = (
+        ("K7", functools.partial(V.lj_cell_forces_lanej, defer=True), row_ref,
+         (r_i, r_j), dict(dims=dims, cap=cap, box=rsim.spec.box, **lj),
+         dict(j_elems=r_j.numel()),
+         {"defer_off": (functools.partial(V.lj_cell_forces_lanej, defer=False),
+                        row_ref)}),
+        ("K8", V.lj_cell_forces_n3l, V.lj_cell_forces_n3l_reference, (r4,), local,
+         {}, {}),
+        ("K9", V.lj_cell_forces_zb, V.lj_cell_forces_zb_reference, (r4,), local, {},
+         {"gram": (functools.partial(V.lj_cell_forces_zb, gram=True),
+                   functools.partial(V.lj_cell_forces_zb_reference, gram=True))}),
+        ("K10", PK.lj_forces_packed, PK.lj_forces_packed_reference,
+         (pos4, tab, meta), dict(nx=nx, ny=ny, nz=nz, Wp=Wp, box=rsim.spec.box, **lj),
+         dict(nbytes=p_bytes), {}),
+    )
+    for key, fn, ref, args, kw, bkw, extra in cases:
+        res, err, rel = lj_times(key, fn, ref, args, kw)
+        bound = lj_bound(r_i, dims, cap, dict(cell_len=rsim.cell_len, rc2=rsim.rc2),
+                         3, **{"j_elems": 0, **bkw})
+        more = {}
+        for mode, (f, g) in extra.items():
+            more["ms_" + mode] = "%.3f" % cuda_ms(
+                lambda: f(*args, compute_macro=False, **kw), 10)
+            e = max(rel_errors(f(*args, **kw), g(*args, **kw)))
+            check(e <= 1e-5, f"{key} {mode} at its path's shape: rel err {e}")
+            more["rel_err_" + mode] = "%.3e" % e
+        if key == "K10":
+            lanes = packed_pair_lanes(pos4, meta, nx)
+            more.update(Wp=Wp, feasible=feas, pair_lanes=lanes,
+                        pair_lanes_per_s=f"{lanes / res[False][0] * 1e3:.4e}")
+        say("times", kernel=key, grid=dims, cap=cap, ms_fast=f"{res[False][0]:.3f}",
+            plain_ms_fast=f"{res[False][1]:.3f}", ms_macro=f"{res[True][0]:.3f}",
+            plain_ms_macro=f"{res[True][1]:.3f}", K1_ms=f"{k1_ms:.3f}",
+            max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", bound=json.dumps(bound),
+            gpu=repr(smi), **more)
+        out[key] = dict(max_abs_err=err, ms=res[False][0], plain_ms=res[False][1],
+                        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
     return out
 
 
 def main():
+    t_start = time.perf_counter()
     smi = phase_device()
     device = "cuda"
     import ls1_mardyn_tpu_torch  # noqa: F401  (precision flags)
@@ -1200,10 +1539,17 @@ def main():
     phase_k4(device)
     phase_k5(device)
     phase_k6(device)
+    phase_k7(device)
+    phase_k8(device)
+    phase_k9(device)
+    phase_k10(device)
     phase_small(device)
     phase_general_small(device)
     phase_multisite_small(device)
     sim_rmm, launches = phase_main(device, smi)
+    switched = phase_switches(sim_rmm, smi)
+    launches.update({k: switched[k] for k in ("K7", "K8", "K9")})
+    launches.update(phase_packed(sim_rmm, smi))
     sim_gen, launches_gen = phase_general(device, smi)
     launches.update(launches_gen)
     phase_multisite_cells(device, smi)
@@ -1218,6 +1564,7 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu, "launches": launches[key],
                         **times[key], "library_ms": None})
+    say("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

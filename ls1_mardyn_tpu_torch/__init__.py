@@ -1,4 +1,4 @@
-"""ls1-mardyn-tpu-torch: the PyTorch + CUDA port of ls1_mardyn_tpu.
+"""ls1-mardyn-tpu-torch: the PyTorch + CUDA port of ``ls1_mardyn_tpu``.
 
 The JAX package ``ls1_mardyn_tpu`` stays the reference; this package
 mirrors its module paths and class names (``driver.MDSimulation``,

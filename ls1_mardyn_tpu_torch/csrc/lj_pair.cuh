@@ -5,9 +5,11 @@
 // and the virial, and the launch.  A kernel source adds only what is its
 // own: a neighbour functor that says where the j slots of the cell at
 // offset (dx, dy, dz) lie and which image shift they get, and its
-// extern "C" entry points.
+// extern "C" entry points.  The kernels with a traversal of their own
+// (lj_cells_lanej.cu, lj_cells_n3l.cu, lj_cells_zb.cu, lj_packed.cu) use
+// the pair term, the rounding helpers and the block reduction only.
 //
-// Every kernel built on this evaluates pairs from both sides (no
+// Every kernel built on the skeleton evaluates pairs from both sides (no
 // Newton-3rd-law reaction writes, no atomics): the force on the i slot
 // stays in registers and the result is deterministic; u6 and the virial
 // are halved per pair, reduced per block into part[block, 2] and summed
@@ -53,9 +55,37 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+// ((x*x + y*y) + z*z), rounded as the plain versions round it
+template <typename T>
+__device__ __forceinline__ T norm2(T x, T y, T z) {
+  return add_rn(add_rn(mul_rn(x, x), mul_rn(y, y)), mul_rn(z, z));
+}
+
+// LJ-12-6 term of one pair inside the cutoff: the force factor fac
+// (F_i = fac * (r_i - r_j)) and 6*U without shift6.  IEEE division.
+template <typename T>
+__device__ __forceinline__ void lj_term(T dr2, T eps24, T sig2, T& fac, T& u6) {
+  const T inv = T(1) / dr2;
+  T lj6 = sig2 * inv;
+  lj6 = lj6 * lj6 * lj6;
+  fac = eps24 * (lj6 * inv) * (T(2) * lj6 - T(1));
+  u6 = eps24 * (lj6 * lj6 - lj6);
+}
+
+// sum over the warp into lane 0
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// sum over the warp into every lane
+template <typename T>
+__device__ __forceinline__ T warp_allsum(T v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -88,14 +118,11 @@ __device__ __forceinline__ void cell_pairs(T xi, T yi, T zi, const T* sx,
     const T ddx = xi - sx[k];
     const T ddy = yi - sy[k];
     const T ddz = zi - sz[k];
-    const T dr2 =
-        add_rn(add_rn(mul_rn(ddx, ddx), mul_rn(ddy, ddy)), mul_rn(ddz, ddz));
+    const T dr2 = norm2(ddx, ddy, ddz);
     const bool m = (sv[k] > T(0.5)) && (dr2 < rc2) && (k != self_k);
     if (m) {
-      const T inv = T(1) / dr2;
-      T lj6 = sig2 * inv;
-      lj6 = lj6 * lj6 * lj6;
-      const T fac = eps24 * (lj6 * inv) * (T(2) * lj6 - T(1));
+      T fac, u6;
+      lj_term(dr2, eps24, sig2, fac, u6);
       const T px = fac * ddx, py = fac * ddy, pz = fac * ddz;
       a.fx += px;
       a.fy += py;
@@ -106,22 +133,25 @@ __device__ __forceinline__ void cell_pairs(T xi, T yi, T zi, const T* sx,
         a.vz += pz * ddz;
       }
       if (MACRO) {
-        a.u6 += eps24 * (lj6 * lj6 - lj6) + shift6;
+        a.u6 += u6 + shift6;
         a.vir += fac * dr2;
       }
     }
   }
 }
 
-// part[2*block] = sum over the block of 0.5*u6, part[2*block+1] likewise
-// for the virial (each ordered pair was seen from both sides: halve).
-// Every thread of the block must call it.
+// part[2*block] = sum over the block of scale*u6, part[2*block+1]
+// likewise for the virial: scale 0.5 where each ordered pair was seen
+// from both sides, 1 where each pair was evaluated once.  The block is
+// blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z).  Every
+// thread of the block must call it.
 template <typename T>
-__device__ __forceinline__ void block_macro(T u6, T vir, T* __restrict__ part) {
+__device__ __forceinline__ void block_macro(T u6, T vir, T* __restrict__ part,
+                                            T scale = T(0.5)) {
   __shared__ T red[2][32];
   const int t = threadIdx.x;
-  T a = warp_sum(T(0.5) * u6);
-  T b = warp_sum(T(0.5) * vir);
+  T a = warp_sum(scale * u6);
+  T b = warp_sum(scale * vir);
   const int lane = t & 31, w = t >> 5, nw = (blockDim.x + 31) >> 5;
   if (lane == 0) {
     red[0][w] = a;
@@ -134,8 +164,10 @@ __device__ __forceinline__ void block_macro(T u6, T vir, T* __restrict__ part) {
     a = warp_sum(a);
     b = warp_sum(b);
     if (t == 0) {
-      part[2 * (long long)blockIdx.x] = a;
-      part[2 * (long long)blockIdx.x + 1] = b;
+      const long long blk =
+          blockIdx.x + (long long)gridDim.x * (blockIdx.y + (long long)gridDim.y * blockIdx.z);
+      part[2 * blk] = a;
+      part[2 * blk + 1] = b;
     }
   }
 }

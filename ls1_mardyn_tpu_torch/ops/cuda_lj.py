@@ -172,11 +172,15 @@ def _planes(r4, W):
 
 
 _VP, _CI, _CD = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# argument types of each library's <name>_f32 / <name>_f64 entry points
+# argument types of each library's <name>_f32 / <name>_f64 entry points,
+# with those of the kernel variants of ops/cuda_lj_variants.py
 _ARGTYPES = {
     "lj_cells": [_VP] * 3 + [_CI] * 5 + [_CD] * 7 + [_CI, _VP],
     "lj_cells_cw": [_VP] * 4 + [_CI] * 7 + [_CD] * 7 + [_CI, _CI, _VP],
     "lj_cells_row": [_VP] * 4 + [_CI] * 8 + [_CD] * 7 + [_CI, _VP],
+    "lj_cells_lanej": [_VP] * 4 + [_CI] * 4 + [_CD] * 7 + [_CI, _CI, _VP],
+    "lj_cells_n3l": [_VP] * 3 + [_CI] * 5 + [_CD] * 7 + [_CI, _VP],
+    "lj_cells_zb": [_VP] * 3 + [_CI] * 5 + [_CD] * 7 + [_CI, _CI, _VP],
 }
 
 
@@ -194,13 +198,15 @@ def _lib(name):
     return lib
 
 
-def _launch(name, r4, out_planes, dims, cap, args, compute_macro):
-    """Allocate outputs, launch csrc/<name>.cu on PyTorch's current
-    stream, check the status; returns (f, u6, vir).  `args(f, part)`
-    gives the entry point's arguments before the stream."""
+def _launch(name, r4, out_planes, dims, cap, args, compute_macro, zero=False):
+    """Allocate outputs (zeroed with `zero`, for kernels that add into
+    them), launch csrc/<name>.cu on PyTorch's current stream, check the
+    status; returns (f, u6, vir).  `args(f, part)` gives the entry
+    point's arguments before the stream."""
     nx, ny, nz = dims
     lib = _lib(name)
-    f = torch.empty((nz, ny, out_planes, nx * cap), dtype=r4.dtype, device=r4.device)
+    f = (torch.zeros if zero else torch.empty)(
+        (nz, ny, out_planes, nx * cap), dtype=r4.dtype, device=r4.device)
     nb = getattr(lib, name + "_num_blocks")(nx, ny, nz, cap)
     part = torch.empty((nb, 2), dtype=r4.dtype, device=r4.device)
     fn = getattr(lib, name + ("_f32" if r4.dtype == torch.float32 else "_f64"))

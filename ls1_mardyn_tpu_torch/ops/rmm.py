@@ -15,9 +15,18 @@ shift-merge rebin, kernel K2 (ops/cuda_rebin.py), re-packs the cells;
 when it overflows (a cell full, or a molecule hopped more than one
 cell) the global-sort rebin `_rebin` runs on the same state.
 
-The JAX package's kernel switches (zb, n3l, lanej, cw_skip, cw_pack,
-gsub) are A/B experiments of the TPU and are not ported; K1 has no
-lane-alignment condition, so the row-kernel fallback is not needed.
+Kernel switches, the JAX package's, public attributes set on the
+simulation object (for MDSimulation: `md.engine.sim`), read at every
+force evaluation, with the JAX precedence:
+  cw and cwn3l          K1  lj_cell_forces (the default)
+  cw, cwn3l = False     K3  lj_cell_forces_cw
+  cw = False, then      K7  lj_cell_forces_lanej (lanej, lanej_defer)
+                        K8  lj_cell_forces_n3l (n3l)
+                        K9  lj_cell_forces_zb (zb, zb_gram)
+  none of these         K4  lj_cell_forces_row, cell-local mode
+All give the same forces, u6 and virial to rounding.  The JAX package's
+cwn3l opt-ins (cw_gsub, cw_pack, cw_skip, cw_prefix) and its reciprocal
+switches (fast_recip, recip_newton) are TPU experiments and not ported.
 """
 
 from __future__ import annotations
@@ -32,7 +41,14 @@ from ls1_mardyn_tpu_torch.ops.cells import CellGridSpec, bin_by_id, wrap_positio
 from ls1_mardyn_tpu_torch.ops.cuda_lj import (
     SENTINEL_SCALE,
     lj_cell_forces,
+    lj_cell_forces_cw,
+    lj_cell_forces_row,
     sentinel_eligible,
+)
+from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import (
+    lj_cell_forces_lanej,
+    lj_cell_forces_n3l,
+    lj_cell_forces_zb,
 )
 from ls1_mardyn_tpu_torch.ops.cuda_rebin import rebin_shift
 from ls1_mardyn_tpu_torch.ops.globals import GlobalValues, calculate_global_values
@@ -105,6 +121,15 @@ class RMMSimulation:
         # empty slots carry y_local = SENTINEL_SCALE*(1+slot) where the
         # layout admits it, as in the JAX package (state parity)
         self.sentinel = sentinel_eligible(spec.cell_len, self.rc2, spec.cap)
+        # kernel switches (module docstring), the JAX names and defaults;
+        # cw needs no lane alignment here, so it is on wherever K1 runs
+        self.cw = True
+        self.cwn3l = True
+        self.lanej = False
+        self.lanej_defer = True
+        self.n3l = False
+        self.zb = False
+        self.zb_gram = False
         self.state: RMMState = None
         self._k = 0
         # how often the shift rebin overflowed into the global rebin
@@ -112,17 +137,33 @@ class RMMSimulation:
 
     # -- kernels ------------------------------------------------------------
     def _kernel(self, planes, compute_macro=True):
-        return lj_cell_forces(
-            planes[:, :, :4, :],
-            dims=self.spec.dims,
-            cap=self.spec.cap,
-            cell_len=self.cell_len,
-            eps24=self.eps24,
-            sig2=self.sig2,
-            shift6=self.shift6,
-            rc2=self.rc2,
-            compute_macro=compute_macro,
-        )
+        """(f [nz,ny,3,nx*cap], u6, vir) of the state `planes` through the
+        kernel the switches select (module docstring)."""
+        cap = self.spec.cap
+        r_i = planes[:, :, :4, :]
+        lj = dict(eps24=self.eps24, sig2=self.sig2, shift6=self.shift6,
+                  rc2=self.rc2, compute_macro=compute_macro)
+        local = dict(dims=self.spec.dims, cap=cap, cell_len=self.cell_len, **lj)
+        if self.cw:
+            fn = lj_cell_forces if self.cwn3l else lj_cell_forces_cw
+            return fn(r_i, **local)
+        row = dict(dims=self.spec.dims, cap=cap, box=self.box, **lj)
+        if self.lanej:
+            return lj_cell_forces_lanej(*self._row_views(r_i),
+                                        defer=self.lanej_defer, **row)
+        if self.n3l:
+            return lj_cell_forces_n3l(r_i, **local)
+        if self.zb:
+            return lj_cell_forces_zb(r_i, gram=self.zb_gram, **local)
+        return lj_cell_forces_row(*self._row_views(r_i), local_coords=True, **row)
+
+    def _row_views(self, r_i):
+        """(r_i, r_j) of K7 and K4: the i planes and a j view with one
+        periodic x halo cell per side (plain copies: the coordinates are
+        cell-local)."""
+        nx, cap = self.spec.dims[0], self.spec.cap
+        r_i = r_i.contiguous()
+        return r_i, torch.cat([r_i[..., (nx - 1) * cap:], r_i, r_i[..., :cap]], dim=-1)
 
     # -- step ---------------------------------------------------------------
     @staticmethod
