@@ -78,7 +78,10 @@ non-zero and never prints the result line):
            paths gave them (CUDA events), and each kernel's bound; K3 and
            K4 also against plain on K1's grid (56,60,60), K7-K10 on K1's
            state beside K1; the multi-site plain versions on a 2-row z
-           slab, and at full width when that extrapolates to under 60 s
+           slab, and at full width when that extrapolates to under 60 s;
+           K5 and K6 also report the candidate tests their warp windows
+           walk (and PR 4's block windows), the ordered pairs inside the
+           cutoff, and the ptxas registers and spills of each precision
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
 result.
@@ -1198,10 +1201,83 @@ def plain_once_ms(fn):
     return t0.elapsed_time(t1), res
 
 
-def ms_times(key, kernel, plain, args, kw, nz, slab, smi, bound):
+def ptxas_report(name):
+    """Registers, spills and static shared memory of each kernel of
+    csrc/<name>.cu, read from the ptxas report (nvcc -Xptxas -v) that
+    ops/_build.py keeps beside the library: {"f32"|"f64"|entry: {...}}."""
+    from ls1_mardyn_tpu_torch.ops import _build
+
+    out, cur = {}, None
+    for ln in _build.build_log(name).splitlines():
+        if "Compiling entry function" in ln:
+            ent = ln.split("'")[1]
+            cur = "f32" if "IfN" in ent else ("f64" if "IdN" in ent else ent)
+            out[cur] = {}
+        elif cur and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[cur].update(stack=nums[0], spill_stores=nums[1],
+                            spill_loads=nums[2])
+        elif cur and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            out[cur]["registers"] = int(words[words.index("registers") - 1])
+            if "smem" in words:
+                out[cur]["smem"] = int(words[words.index("smem") - 2])
+    return out
+
+
+def _warp_cells(valid, cell, width):
+    """Per group of `width` consecutive slots of each row: the number of
+    valid slots and the least and greatest cell among them (0 where the
+    group holds none)."""
+    pad = -valid.shape[-1] % width
+    v = torch.nn.functional.pad(valid, (0, pad)).reshape(
+        *valid.shape[:-1], -1, width)
+    c = torch.nn.functional.pad(cell, (0, pad)).reshape(v.shape)
+    n = v.sum(-1)
+    lo = torch.where(v, c, torch.iinfo(c.dtype).max).amin(-1)
+    hi = torch.where(v, c, -1).amax(-1)
+    return n, torch.where(n > 0, lo, 0), torch.where(n > 0, hi, 0)
+
+
+def ms_window_candidates(r_i, cell, nx, cap, tbl=None, width=32,
+                         valid_j=True):
+    """(i slot, j slot) tests the multi-site kernels' windows walk in one
+    call on this state (csrc/ms_pair.cuh): per group of `width` i slots
+    (32: a warp's window; 128: a block's, as PR 4's kernels walked), its
+    valid slots times the j slots of cells lo-1 .. hi+1 of the 9
+    neighbour rows (wrapped rows, no halo rows).  Packed rows (K5) read
+    the j ranges from the cell-start table tbl; dense rows (K6) count the
+    valid j slots (valid_j: the warps stage valid slots only) or all cap
+    slots of a cell (PR 4's kernels tested every slot)."""
+    valid = r_i[:, :, 3] > 0.5
+    n, lo, hi = _warp_cells(valid, cell.long(), width)
+    n = n.double()
+    # packed rows keep the right wrap halo in a head range
+    wrap_hi = (hi >= nx - 1) & (tbl is not None)
+    if tbl is None:
+        if not valid_j:
+            return int(round(float((9 * n * (hi - lo + 3) * cap).sum())))
+        occ = valid.reshape(*valid.shape[:2], nx, cap).sum(-1)
+        ext = torch.cat([occ[..., -1:], occ, occ[..., :1]], -1)
+        # start of extended cell c (cell c-1 of the row) in valid j slots
+        tbl = torch.nn.functional.pad(torch.cumsum(ext, -1), (1, 0))
+    total = 0.0
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            tb = torch.roll(tbl, shifts=(-dz, -dy), dims=(0, 1)).long()
+            a0 = torch.gather(tb, 2, lo)
+            a1 = torch.where(wrap_hi, tb[..., nx + 1:nx + 2],
+                             torch.gather(tb, 2, torch.clamp(hi + 3, max=nx + 2)))
+            head = torch.where(wrap_hi, tb[..., nx + 2:nx + 3], 0)
+            total += float((n * (a1 - a0 + head)).sum())
+    return int(round(total))
+
+
+def ms_times(key, kernel, plain, args, kw, nz, slab, smi, bound, **extra):
     """Kernel (CUDA events, 5 launches) and plain version at the path's
     shape; the plain version on a 2-row z slab of the same state first,
-    and at full width when that extrapolates to under 60 s."""
+    and at full width when that extrapolates to under 60 s.  `extra` is
+    printed with the times."""
     k_ms = cuda_ms(lambda: kernel(*args, **kw), 5)
     s_args, s_kw = slab(2)
     slab_ms, ref = plain_once_ms(lambda: plain(*s_args, **s_kw))
@@ -1217,7 +1293,8 @@ def ms_times(key, kernel, plain, args, kw, nz, slab, smi, bound):
     say("times", kernel=key, ms=f"{k_ms:.3f}", plain_ms=f"{plain_ms:.1f}",
         plain_on="full width" if full else f"z slab of 2 of {nz} rows",
         plain_slab_ms=f"{slab_ms:.1f}", max_abs_err=f"{err:.3e}",
-        rel_err=f"{rel:.3e}", bound=json.dumps(bound), gpu=repr(smi))
+        rel_err=f"{rel:.3e}", bound=json.dumps(bound), gpu=repr(smi),
+        **{k: json.dumps(v) for k, v in extra.items()})
     return dict(max_abs_err=err if full else rel, ms=k_ms, plain_ms=plain_ms,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
@@ -1245,9 +1322,12 @@ def phase_times_ms(sims, smi):
                   path.screen_alpha > 0,
                   (tbl.numel() * 4 + (r_i.numel() + r_j.numel()) * size),
                   r_i.shape[0] * r_i.shape[1] * 10 * r_i.shape[3], size)
+    cells = r_i[:, :, path.cell_plane].round().long()
     out["K5"] = ms_times("K5", cuda_ms_packed.multisite_cell_forces_packed,
                          cuda_ms_packed.multisite_cell_forces_packed_reference,
-                         (tbl, r_i, r_j), kw, nz, slab5, smi, b5)
+                         (tbl, r_i, r_j), kw, nz, slab5, smi, b5,
+                         **ms_walk_report("ms_packed", b5, r_i, cells, nx,
+                                          path.spec.cap, tbl))
 
     path = sims["K6"].engine._force_fn
     mol = sims["K6"].engine.mol
@@ -1266,10 +1346,27 @@ def phase_times_ms(sims, smi):
                   path.screen_alpha > 0,
                   (r_i.numel() + r_j.numel()) * size,
                   r_i.numel() // r_i.shape[2] * 10, size)
+    slots = torch.arange(r_i.shape[-1], device=r_i.device) // path.spec.cap
     out["K6"] = ms_times("K6", cuda_ms.multisite_cell_forces,
                          cuda_ms.multisite_cell_forces_reference, (r_i, r_j),
-                         kw6, nz, slab6, smi, b6)
+                         kw6, nz, slab6, smi, b6,
+                         **ms_walk_report("ms_dense", b6, r_i,
+                                          slots.expand(r_i.shape[0], r_i.shape[1], -1),
+                                          nx, path.spec.cap))
     return out
+
+
+def ms_walk_report(lib, bound, r_i, cells, nx, cap, tbl=None):
+    """What a K5/K6 call walks on this state: the (i, j) candidate tests
+    of the warp windows (and of PR 4's block windows, every j slot), the
+    ordered pairs inside the cutoff that the site program runs on (twice
+    the bound's unordered count), and the ptxas report of the library."""
+    return dict(
+        window_candidates=ms_window_candidates(r_i, cells, nx, cap, tbl, 32),
+        pr4_window_candidates=ms_window_candidates(r_i, cells, nx, cap, tbl,
+                                                   128, valid_j=False),
+        inside_ordered=2 * int(bound["inside"]),
+        ptxas=ptxas_report(lib))
 
 
 def lj_bound(r_i, dims, cap, lj, out_planes, j_elems, nbytes=None):

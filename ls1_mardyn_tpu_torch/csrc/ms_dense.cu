@@ -13,11 +13,12 @@
 //
 // The TPU kernel pairs a tx-cell i tile with its (tx+2)-cell window and
 // chunks the window by jw lanes for cap > 128 (a VMEM device); here an
-// i tile is 128 consecutive slots, its window the cells its valid slots
-// cover +-1, staged in 64-slot chunks whatever the cap (the extra
-// candidates of a wide window are >= one cell edge >= rc away and fail
-// the cutoff exactly).  The identity-matmul transposes, the one-hot
-// component products and the plane-9 scalar lanes are not reproduced.
+// i tile is 128 consecutive slots, a warp's window the cells its valid
+// slots cover +-1, staged as chunks of 32 valid slots whatever the cap
+// (the extra candidates of a window two cells wide are >= one cell edge
+// >= rc away and fail the cutoff exactly).  The identity-matmul
+// transposes, the one-hot component products and the plane-9 scalar
+// lanes are not reproduced.
 //
 // The bodies, the skeleton, what bounds the kernel and its design are
 // ms_pair.cuh's.

@@ -12,8 +12,8 @@
 // rows, no z shift); y and otherwise z wrap with -+by / -+bz.
 //
 // A block is one 128-molecule i tile of a row; tiles at or beyond
-// ceil(row count / 128) write zeros.  The tile's covering cells
-// [c_lo, c_hi] (block min/max of the cell plane over its valid slots)
+// ceil(row count / 128) write zeros.  A warp's covering cells
+// [c_lo, c_hi] (warp min/max of the cell plane over its valid slots)
 // give, per neighbour row, the EXACT j range of cells c_lo-1 .. c_hi+1:
 // [tbl[c_lo], tbl[c_hi+3]), or up to the row end plus the head range
 // [0, tbl[nx+2]) (the right wrap halo) when c_hi >= nx-1.  The TPU

@@ -4,8 +4,9 @@
 // the site-pair loop over one molecule pair, and the kernel skeleton.
 // A kernel source adds only a row functor: where the i rows lie, which
 // i tiles are live, the cell of an i slot, and for each of the 9
-// (dz, dy) neighbour rows the j row, its j slot ranges, its image shift
-// and the self-pair offset.
+// (dz, dy) neighbour rows and a covering cell range [c_lo, c_hi] the j
+// row, its j slot ranges for cells c_lo-1 .. c_hi+1, its image shift and
+// the self-pair offset.
 //
 // The function (the TPU kernels' _pair_physics,
 // ls1_mardyn_tpu/ops/pallas_multisite.py:61): for every occupied i slot
@@ -27,32 +28,69 @@
 // kernel's one-hot component products and its trace-time alias pruning
 // are not carried over; a site at the COM skips its offset.
 //
-// What bounds these kernels on this card: arithmetic throughput.  A call
-// tests ~27 * (molecules per cell) candidates per molecule at ~12
+// What bounds these kernels on this card: arithmetic throughput, and
+// the latency of the shared-memory reads of the interpreted program.  A
+// call tests ~27 * (molecules per cell) candidates per molecule at ~12
 // operations and evaluates the site program on the ~15% inside the
-// cutoff (4 LJ site pairs and a quadrupole pair, ~250 operations, for
-// the 2CLJQ model), with IEEE divisions and square roots.  Each staged j
-// slot (P planes) feeds 128 i slots from shared memory, so device-memory
-// traffic is a few bytes per pair and far below the memory roof.
+// cutoff (4 LJ site pairs and a quadrupole pair, ~480 operations, for
+// the 2CLJQ model).  Staged j slots feed 32 i slots each from shared
+// memory, so device-memory traffic stays far below the memory roof.
+// What costs is keeping the lanes of a warp busy on the site program
+// (only ~15% of the candidates run it) and enough warps resident to hide
+// the program's dependent shared-memory reads.
 //
-// Design (the first, plain one; PERF.md has its times):
-//   * one block = one tile of 128 consecutive i slots of one (z, y) row
-//     (TI threads, one slot each); the block stages its i slots' planes
-//     in shared memory, so the site program reads them by plane index;
-//   * the tile's covering cell range [c_lo, c_hi] (a block min/max over
-//     its valid slots) gives, per neighbour row, the j slot ranges of
-//     cells c_lo-1 .. c_hi+1; they are staged through shared memory in
-//     chunks of CH slots x P planes with the y/z image shift added once
-//     (rounded, as the plain version adds it), and every thread walks
-//     the chunk: the COM cutoff test first (most candidates fail it),
-//     then the site program;
+// Design (measured step by step on the H100, PERF.md "PR 5"):
+//   * one block = one tile of TI = 128 consecutive i slots of one (z, y)
+//     row (one slot a thread, 4 warps); the block stages its i slots'
+//     planes and the program in shared memory, so the site program reads
+//     them by plane index;
+//   * warp windows: each warp takes the cells its valid slots cover,
+//     [w_lo, w_hi], by a warp min/max, and walks on its own, with no block
+//     barrier, the j slots of cells w_lo-1 .. w_hi+1 of the 9 neighbour
+//     rows; a warp without a valid slot walks nothing.  (Staging the
+//     block's window once for its 4 warps made every chunk cost the
+//     slowest warp's time, and the narrower warp windows then bought
+//     nothing.)
+//   * staging: the warp copies its window in chunks of CH = 32 VALID j
+//     slots (a ballot compacts away the empty slots of the dense rows;
+//     each slot's row index rides along for the self-pair test), only
+//     the planes the program reads, with the y/z image shift added once
+//     (rounded, as the plain version adds it).  32 slots a chunk keep
+//     the block at ~30 KB of shared memory, so registers, not shared
+//     memory, set the blocks an SM holds;
+//   * in-cutoff pair lists: each lane (i slot) runs the COM cutoff test
+//     on every j of the chunk and appends the chunk index of each j
+//     inside a cutoff to its own list in shared memory (s_list).  A warp
+//     prefix sum of the list lengths flattens the 32 lists into one
+//     sequence of (owner lane, j) pairs, in owner order; the warp
+//     evaluates it 32 pairs at a time, each lane one pair (it finds the
+//     owner by a binary search of the prefix), so every lane runs the
+//     site program on a pair inside the cutoff;
+//   * segmented reduction: the pairs of one owner are contiguous lanes of
+//     a round, so a suffix scan of shuffles over the lanes of equal owner
+//     leaves the owner's round total in the first lane of its run; the
+//     owner lane fetches it by one shuffle and adds it to its F, M, Vi in
+//     registers.  u6, uX and myRF go to the evaluating lane's sums (they
+//     are only summed over the block).  No atomics: every sum is taken in
+//     an order fixed by the inputs, so the result is deterministic, and
+//     explicit halo rows reproduce the wrapped result bit for bit;
 //   * |drm|^2 is formed exactly as the plain PyTorch versions form it,
-//     ((dx*dx + dy*dy) + dz*dz) with no FMA contraction, so both put
-//     every pair on the same side of the cutoff (unshifted charge terms
-//     jump at rc); divisions, square roots and erfc are the IEEE /
-//     libdevice ones (no fast-math build);
-//   * double-sided evaluation, no atomics: the sums of an i slot stay in
-//     registers, and the result is deterministic.
+//     ((dx*dx + dy*dy) + dz*dz) with no FMA contraction, in the test and
+//     again in the evaluation, so both put every pair on the same side of
+//     the cutoff (unshifted charge terms jump at rc);
+//   * site arithmetic: one reciprocal square root per site pair gives
+//     invd = 1/|dr| and inv = invd^2 for every body, where the IEEE forms
+//     took a division and a square root (inv = 1/r2 within 0.5 ulp, invd
+//     = sqrt(inv) within 1).  In f32, rsqrtf (within 2 ulp) and one Newton
+//     step on the residual 1 - r2 y^2 taken with an FMA: invd within ~1
+//     ulp, inv within ~2.5.  rsqrtf alone biased the quadrupole energy
+//     sum of the full-width 2CLJQ state (5.0e-4 of it against the plain
+//     version, where the IEEE forms gave 2.5e-4 and the Newton step 1.7e-4;
+//     that sum nearly cancels).  In f64, rsqrt (within 1 ulp), inv within
+//     2.5.  exp and erfc of the screened charge pair are libdevice's; no
+//     fast-math build;
+//   * registers: __launch_bounds__ asks for 6 blocks an SM in f32 (ptxas:
+//     80 registers, no spills); f64 takes what it needs (no spills).
 
 #pragma once
 
@@ -62,10 +100,15 @@
 namespace msk {
 
 constexpr int TI = 128;       // i slots per block
-constexpr int CH = 64;        // j slots per staged chunk
+constexpr int NW = TI / 32;   // warps per block
+constexpr int CH = 32;        // j slots per chunk a warp stages
+constexpr int LSTR = CH + 4;  // bytes per lane list (the pad spreads banks)
+constexpr int MIN_BLOCKS_F32 = 6;  // f32 blocks an SM holds (<= 85 registers)
 constexpr int NOUT = 10;      // F, M, Vi, (zero)
 constexpr int TERM_INTS = 10; // body, pi, pj, ei, ej, c0, c1, c2, stride, pad
 constexpr int NO_SELF = INT_MIN / 2;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(CH <= 256, "list entries are bytes");
 
 enum Body : int { LJ = 0, CC, CQ, CD, QC, QQ, QD, DC, DQ, DD };
 
@@ -75,6 +118,14 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ int to_int(float a) { return __float2int_rn(a); }
 __device__ __forceinline__ int to_int(double a) { return __double2int_rn(a); }
+// rsqrtf (within 2 ulp) and one Newton step on the residual 1 - a y^2,
+// taken with an FMA (see the design notes above)
+__device__ __forceinline__ float rsq(float a) {
+  const float y = rsqrtf(a);
+  const float r = __fmaf_rn(-a * y, y, 1.0f);
+  return __fmaf_rn(0.5f * y, r, y);
+}
+__device__ __forceinline__ double rsq(double a) { return rsqrt(a); }
 
 // c mod n for c in [-1, n] and any n >= 1 (a row index plus -1, 0, 1)
 __device__ __forceinline__ int wrap(int c, int n) {
@@ -112,14 +163,13 @@ __device__ __forceinline__ V3<T> cross(V3<T> a, V3<T> b) {
 }
 
 // -- the bodies (potforce.h in component form; ops/cellforce_lanes.py of
-// the JAX package); inv = 1 / |dr|^2 --------------------------------------
+// the JAX package); invd = 1 / |dr|, inv = invd^2 -------------------------
 
 // charge (role i) -- quadrupole (role j, orientation ej): f on the
 // charge, m2 the torque on the quadrupole
 template <typename T>
-__device__ __forceinline__ void charge_quad(V3<T> dr, T inv, V3<T> ej, T qQ05,
-                                            V3<T>& f, V3<T>& m2, T& u) {
-  const T invd = sqrt(inv);
+__device__ __forceinline__ void charge_quad(V3<T> dr, T invd, T inv, V3<T> ej,
+                                            T qQ05, V3<T>& f, V3<T>& m2, T& u) {
   const T costj = dot(ej, dr) * invd;
   const T qQ3 = qQ05 * invd * inv;
   u = qQ3 * (T(3) * costj * costj - T(1));
@@ -132,9 +182,8 @@ __device__ __forceinline__ void charge_quad(V3<T> dr, T inv, V3<T> ej, T qQ05,
 
 // charge (role i) -- dipole (role j)
 template <typename T>
-__device__ __forceinline__ void charge_dip(V3<T> dr, T inv, V3<T> ej, T mqmy,
-                                           V3<T>& f, V3<T>& m2, T& u) {
-  const T invd = sqrt(inv);
+__device__ __forceinline__ void charge_dip(V3<T> dr, T invd, T inv, V3<T> ej,
+                                           T mqmy, V3<T>& f, V3<T>& m2, T& u) {
   const T costj = dot(ej, dr) * invd;
   const T uic = mqmy * inv;
   u = uic * costj;
@@ -147,10 +196,9 @@ __device__ __forceinline__ void charge_dip(V3<T> dr, T inv, V3<T> ej, T mqmy,
 // dipole -- dipole with the reaction field: f and m1 on i, rf the
 // reaction-field term (-rffac cos gamma)
 template <typename T>
-__device__ __forceinline__ void dip_dip(V3<T> dr, T inv, V3<T> ei, V3<T> ej,
-                                        T my2, T rffac, V3<T>& f, V3<T>& m1,
-                                        T& u, T& rf) {
-  const T invd = sqrt(inv);
+__device__ __forceinline__ void dip_dip(V3<T> dr, T invd, T inv, V3<T> ei,
+                                        V3<T> ej, T my2, T rffac, V3<T>& f,
+                                        V3<T>& m1, T& u, T& rf) {
   const T myfac = my2 * inv * invd;
   const T costi = dot(ei, dr) * invd;
   const T costj = dot(ej, dr) * invd;
@@ -168,10 +216,9 @@ __device__ __forceinline__ void dip_dip(V3<T> dr, T inv, V3<T> ei, V3<T> ej,
 // dipole (role i, ei) -- quadrupole (role j, ej): f on the dipole, m1 the
 // torque on the dipole, m2 on the quadrupole
 template <typename T>
-__device__ __forceinline__ void dip_quad(V3<T> dr, T inv, V3<T> ei, V3<T> ej,
-                                         T myq15, V3<T>& f, V3<T>& m1,
-                                         V3<T>& m2, T& u) {
-  const T invd = sqrt(inv);
+__device__ __forceinline__ void dip_quad(V3<T> dr, T invd, T inv, V3<T> ei,
+                                         V3<T> ej, T myq15, V3<T>& f,
+                                         V3<T>& m1, V3<T>& m2, T& u) {
   const T myqfac = myq15 * inv * inv;
   const T costi = dot(ei, dr) * invd;
   const T costj = dot(ej, dr) * invd;
@@ -191,9 +238,9 @@ __device__ __forceinline__ void dip_quad(V3<T> dr, T inv, V3<T> ei, V3<T> ej,
 
 // quadrupole -- quadrupole: f and m1 on i
 template <typename T>
-__device__ __forceinline__ void quad_quad(V3<T> dr, T inv, V3<T> ei, V3<T> ej,
-                                          T q2075, V3<T>& f, V3<T>& m1, T& u) {
-  const T invd = sqrt(inv);
+__device__ __forceinline__ void quad_quad(V3<T> dr, T invd, T inv, V3<T> ei,
+                                          V3<T> ej, T q2075, V3<T>& f,
+                                          V3<T>& m1, T& u) {
   const T qfac = q2075 * inv * inv * invd;
   const T costi = dot(ei, dr) * invd;
   const T costj = dot(ej, dr) * invd;
@@ -214,7 +261,7 @@ __device__ __forceinline__ void quad_quad(V3<T> dr, T inv, V3<T> ei, V3<T> ej,
   m1 = (-pTi) * cross(ei, dr) - pG * cross(ei, ej);
 }
 
-// Sums of one i slot.
+// Sums of one molecule pair: F, M, Vi on i and the unhalved energies.
 template <typename T>
 struct Acc {
   V3<T> F{T(0), T(0), T(0)}, M{T(0), T(0), T(0)}, V{T(0), T(0), T(0)};
@@ -227,6 +274,15 @@ struct Phys {
   T rc2, rc2lj, alpha, tap;  // tap = 2 alpha / sqrt(pi)
   int K, nterms;
 };
+
+// The COM separation of i (planes at si, stride TI) and j (at sj,
+// stride CH) and its square, rounded as the plain versions round it.
+template <typename T>
+__device__ __forceinline__ T com_sep(const T* si, const T* sj, V3<T>& drm) {
+  drm = {si[0] - sj[0], si[TI] - sj[CH], si[2 * TI] - sj[2 * CH]};
+  return add_rn(add_rn(mul_rn(drm.x, drm.x), mul_rn(drm.y, drm.y)),
+                mul_rn(drm.z, drm.z));
+}
 
 // Every term of the site-pair program for the ordered molecule pair
 // (i, j): si points at the i slot's plane 0 in shared memory (plane
@@ -249,7 +305,9 @@ __device__ __forceinline__ void molecule_pair(const T* si, const T* sj,
       dr = dr + di;
     }
     if (pj >= 0) dr = dr - V3<T>{sj[pj * CH], sj[(pj + 1) * CH], sj[(pj + 2) * CH]};
-    const T inv = T(1) / dot(dr, dr);
+    const T r2 = dot(dr, dr);
+    const T invd = rsq(r2);
+    const T inv = invd * invd;
     const T c0 = tab[tm[5] + kk * tm[8]];
     V3<T> ei{T(0), T(0), T(0)}, ej{T(0), T(0), T(0)};
     if (tm[3] >= 0) ei = {si[tm[3] * TI], si[(tm[3] + 1) * TI], si[(tm[3] + 2) * TI]};
@@ -269,12 +327,10 @@ __device__ __forceinline__ void molecule_pair(const T* si, const T* sj,
         break;
       }
       case CC: {
-        const T invd = sqrt(inv);
         T fac;
         if (ph.alpha > T(0)) {
-          const T dr2 = dot(dr, dr);
-          const T e = exp(-(ph.alpha * ph.alpha) * dr2);
-          u = c0 * erfc(ph.alpha * (dr2 * invd)) * invd;
+          const T e = exp(-(ph.alpha * ph.alpha) * r2);
+          u = c0 * erfc(ph.alpha * (r2 * invd)) * invd;
           fac = (u + c0 * ph.tap * e) * inv;
         } else {
           u = c0 * invd;
@@ -284,32 +340,32 @@ __device__ __forceinline__ void molecule_pair(const T* si, const T* sj,
         break;
       }
       case CQ:
-        charge_quad(dr, inv, ej, c0, f, m2, u);
+        charge_quad(dr, invd, inv, ej, c0, f, m2, u);
         break;
       case CD:
-        charge_dip(dr, inv, ej, c0, f, m2, u);
+        charge_dip(dr, invd, inv, ej, c0, f, m2, u);
         break;
       case QC:  // dr = charge_j - quad_i; i gets -f and the quad torque
-        charge_quad(-dr, inv, ei, c0, f, m, u);
+        charge_quad(-dr, invd, inv, ei, c0, f, m, u);
         f = -f;
         break;
       case QQ:
-        quad_quad(dr, inv, ei, ej, c0, f, m, u);
+        quad_quad(dr, invd, inv, ei, ej, c0, f, m, u);
         break;
       case QD:  // dr = dip_j - quad_i; i gets -f and the quad torque
-        dip_quad(-dr, inv, ej, ei, c0, f, m2, m, u);
+        dip_quad(-dr, invd, inv, ej, ei, c0, f, m2, m, u);
         f = -f;
         break;
       case DC:  // dr = charge_j - dip_i; i gets -f and the dipole torque
-        charge_dip(-dr, inv, ei, c0, f, m, u);
+        charge_dip(-dr, invd, inv, ei, c0, f, m, u);
         f = -f;
         break;
       case DQ:
-        dip_quad(dr, inv, ei, ej, c0, f, m, m2, u);
+        dip_quad(dr, invd, inv, ei, ej, c0, f, m, m2, u);
         break;
       default: {  // DD
         T rf;
-        dip_dip(dr, inv, ei, ej, c0, tab[tm[6] + kk * tm[8]], f, m, u, rf);
+        dip_dip(dr, invd, inv, ei, ej, c0, tab[tm[6] + kk * tm[8]], f, m, u, rf);
         a.rf += rf;
         break;
       }
@@ -323,10 +379,12 @@ __device__ __forceinline__ void molecule_pair(const T* si, const T* sj,
   }
 }
 
-// What a row functor returns for neighbour row (dz, dy): the j row's
-// plane 0, its plane stride, up to two j slot ranges [a0, a1) and
-// [b0, b1), the image shift of its y and z, and the self-pair offset
-// (j == i + self_off on the centre row; NO_SELF elsewhere).
+// What a row functor returns for neighbour row (dz, dy) and a covering
+// cell range: the j row's plane 0, its plane stride, up to two j slot
+// ranges [a0, a1) and [b0, b1) (cells c_lo-1 .. c_hi+1), the image shift
+// of its y and z, and the self-pair offset (j == i + self_off on the
+// centre row; NO_SELF elsewhere).  A slot of a range may be empty
+// (valid plane 0).
 template <typename T>
 struct JRow {
   const T* p;
@@ -338,22 +396,110 @@ struct JRow {
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
   return v;
 }
 
-// Shared memory of a block: the flat tables, the i planes [P][TI], the j
-// chunk [P][CH], then the program.
+// The 9 per-slot sums of a pair as one array (the reduction's payload).
+template <typename T>
+__device__ __forceinline__ void unpack9(const Acc<T>& a, T* v) {
+  v[0] = a.F.x; v[1] = a.F.y; v[2] = a.F.z;
+  v[3] = a.M.x; v[4] = a.M.y; v[5] = a.M.z;
+  v[6] = a.V.x; v[7] = a.V.y; v[8] = a.V.z;
+}
+
+// One warp's staged chunk of n valid j slots (row indices jidx) against
+// its 32 i slots.  Test, list, then the flattened list 32 pairs at a
+// time; own[9] are this lane's slot sums, e[3] its energy sums.
+template <typename T>
+__device__ __forceinline__ void warp_chunk(
+    const T* s_i, const T* s_j, const int* jidx, unsigned char* s_list,
+    const int* s_terms, const T* s_tab, const Phys<T>& ph, int n, int self_j,
+    bool vi, T* own, T* e) {
+  const int t = threadIdx.x, lane = t & 31, w0 = t - lane;
+  unsigned char* mine = s_list + t * LSTR;
+  int cnt = 0;
+  if (vi) {
+    const T* si = s_i + t;
+    for (int q = 0; q < n; ++q) {
+      if (jidx[q] == self_j) continue;
+      V3<T> drm;
+      const T com2 = com_sep(si, s_j + q, drm);
+      if (com2 < ph.rc2lj || com2 < ph.rc2) mine[cnt++] = (unsigned char)q;
+    }
+  }
+  __syncwarp();  // the lists are read by other lanes
+  // exclusive prefix of the list lengths over the warp, and the total
+  int incl = cnt;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += v;
+  }
+  const int excl = incl - cnt;
+  const int total = __shfl_sync(FULL, incl, 31);
+  for (int r0 = 0; r0 < total; r0 += 32) {
+    const int f = r0 + lane;
+    // owner: the last lane whose list starts at or before f
+    int o = 0, eo = 0;
+    for (int st = 16; st > 0; st >>= 1) {
+      const int ex = __shfl_sync(FULL, excl, o + st);
+      if (ex <= f) {
+        o += st;
+        eo = ex;
+      }
+    }
+    const bool act = f < total;
+    T v[9];
+    Acc<T> a;
+    if (act) {
+      const int q = s_list[(w0 + o) * LSTR + (f - eo)];
+      const T* si = s_i + w0 + o;
+      const T* sj = s_j + q;
+      V3<T> drm;
+      const T com2 = com_sep(si, sj, drm);
+      const int kk = to_int(si[4 * TI]) * ph.K + to_int(sj[4 * CH]);
+      molecule_pair(si, sj, drm, com2 < ph.rc2lj, com2 < ph.rc2, kk, s_terms,
+                    s_tab, ph, a);
+      e[0] += a.u6;
+      e[1] += a.uX;
+      e[2] += a.rf;
+    }
+    unpack9(a, v);
+    // suffix sums over the run of lanes of one owner (inactive: owner 32)
+    const int ow = act ? o : 32;
+    for (int st = 1; st < 32; st <<= 1) {
+      const int on = __shfl_down_sync(FULL, ow, st);
+      const bool add = lane + st < 32 && on == ow;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const T x = __shfl_down_sync(FULL, v[k], st);
+        if (add) v[k] += x;
+      }
+    }
+    // this lane's run in the round starts at max(excl, r0) - r0
+    const bool has = cnt > 0 && excl < r0 + 32 && incl > r0;
+    const int head = has ? max(excl, r0) - r0 : 0;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const T x = __shfl_sync(FULL, v[k], head);
+      if (has) own[k] += x;
+    }
+  }
+}
+
+// Shared memory of a block: the flat tables, the i planes [P][TI], the
+// warps' j chunks [NW][P][CH], the program, then the lane lists
+// [TI][LSTR].
 inline size_t smem_bytes(int P, int ntab, int nterms, size_t elem) {
   const size_t ntab_pad = (size_t)((ntab + 1) / 2 * 2);
-  return (ntab_pad + (size_t)P * (TI + CH)) * elem +
-         (size_t)nterms * TERM_INTS * sizeof(int);
+  return (ntab_pad + (size_t)P * (TI + NW * CH)) * elem +
+         (size_t)nterms * TERM_INTS * sizeof(int) + (size_t)TI * LSTR;
 }
 
 // Forces of the i tile blockIdx.x of row (blockIdx.z, blockIdx.y):
 // ri / out are [nz, ny, P | NOUT, W]; part[block][3] the halved sums.
 template <typename T, typename Rows>
-__global__ void __launch_bounds__(TI)
+__global__ void __launch_bounds__(TI, sizeof(T) == 4 ? MIN_BLOCKS_F32 : 1)
 ms_kernel(const T* __restrict__ ri, T* __restrict__ out, T* __restrict__ part,
           const T* __restrict__ tab_g, const int* __restrict__ terms_g,
           int ntab, int P, Rows rows, Phys<T> ph) {
@@ -361,11 +507,13 @@ ms_kernel(const T* __restrict__ ri, T* __restrict__ out, T* __restrict__ part,
   T* s_tab = reinterpret_cast<T*>(smem_raw);
   T* s_i = s_tab + (ntab + 1) / 2 * 2;
   T* s_j = s_i + (size_t)P * TI;
-  int* s_terms = reinterpret_cast<int*>(s_j + (size_t)P * CH);
-  __shared__ int s_lo, s_hi;
-  __shared__ T red[3][TI / 32];
+  int* s_terms = reinterpret_cast<int*>(s_j + (size_t)NW * P * CH);
+  unsigned char* s_list =
+      reinterpret_cast<unsigned char*>(s_terms + ph.nterms * TERM_INTS);
+  __shared__ int s_jidx[NW][CH];
+  __shared__ T red[3][NW];
 
-  const int t = threadIdx.x;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
   const int tile = blockIdx.x, y = blockIdx.y, z = blockIdx.z;
   const long long blk = ((long long)z * gridDim.y + y) * gridDim.x + tile;
   const int W = rows.W;
@@ -383,73 +531,75 @@ ms_kernel(const T* __restrict__ ri, T* __restrict__ out, T* __restrict__ part,
   for (int k = t; k < ph.nterms * TERM_INTS; k += TI) s_terms[k] = terms_g[k];
   const T* pi_g = ri + row * P * W + s;
   for (int p = 0; p < P; ++p) s_i[p * TI + t] = s < W ? pi_g[(long long)p * W] : T(0);
-  if (t == 0) {
-    s_lo = INT_MAX;
-    s_hi = INT_MIN;
-  }
   __syncthreads();
-  const T* si = s_i + t;
-  const bool vi = s < W && si[3 * TI] > T(0.5);
-  if (vi) {
-    const int c = rows.i_cell(si, s);
-    atomicMin(&s_lo, c);
-    atomicMax(&s_hi, c);
+  // the j planes the test and the program read: x y z valid cid, and the
+  // j site offsets and orientations of the terms
+  int pj_end = 5;
+  for (int k = 0; k < ph.nterms; ++k) {
+    const int* tm = s_terms + k * TERM_INTS;
+    pj_end = max(pj_end, max(tm[2], tm[4]) + 3);
   }
-  __syncthreads();
-  const int c_lo = s_lo, c_hi = s_hi;
-  const T xi = si[0], yi = si[TI], zi = si[2 * TI];
-  const int ci = vi ? to_int(si[4 * TI]) : 0;
+  const bool vi = s < W && s_i[3 * TI + t] > T(0.5);
+  const int c = vi ? rows.i_cell(s_i + t, s) : 0;
+  // the warp's covering cells
+  const int w_lo = __reduce_min_sync(FULL, vi ? c : INT_MAX);
+  const int w_hi = __reduce_max_sync(FULL, vi ? c : INT_MIN);
 
-  Acc<T> a;
-  if (c_lo <= c_hi) {  // uniform: the tile holds a valid slot
+  T own[9] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+  T e[3] = {T(0), T(0), T(0)};
+  T* s_jw = s_j + (size_t)w * P * CH;
+  if (w_lo <= w_hi) {  // uniform over the warp: it holds a valid slot
     for (int k = 0; k < 9; ++k) {
-      const JRow<T> jr = rows.row(z, y, k / 3 - 1, k % 3 - 1, c_lo, c_hi);
+      const JRow<T> jr = rows.row(z, y, k / 3 - 1, k % 3 - 1, w_lo, w_hi);
       for (int r = 0; r < 2; ++r) {
-        const int j0 = r ? jr.b0 : jr.a0, j1 = r ? jr.b1 : jr.a1;
-        for (int base = j0; base < j1; base += CH) {
-          const int n = min(CH, j1 - base);
-          for (int e = t; e < P * CH; e += TI) {
-            const int p = e / CH, q = e - p * CH;
-            if (q < n) {
-              T v = jr.p[(long long)p * jr.stride + base + q];
-              if (p == 1) v = add_rn(v, jr.sy);
-              if (p == 2) v = add_rn(v, jr.sz);
-              s_j[e] = v;
+        const int j1 = r ? jr.b1 : jr.a1;
+        int src = r ? jr.b0 : jr.a0;
+        while (src < j1) {  // uniform over the warp
+          // stage the next (up to) CH valid j slots from src on, compacted
+          __syncwarp();  // the last chunk is read
+          int n = 0;
+          while (n < CH && src < j1) {
+            const int q = src + lane;
+            const bool ok = q < j1 && jr.p[3 * jr.stride + q] > T(0.5);
+            const unsigned m = __ballot_sync(FULL, ok);
+            const int rank = __popc(m & ((1u << lane) - 1));
+            const int take = min(__popc(m), CH - n);
+            if (ok && rank < take) {
+              T* d = s_jw + n + rank;
+              for (int p = 0; p < pj_end; ++p) {
+                T v = jr.p[(long long)p * jr.stride + q];
+                if (p == 1) v = add_rn(v, jr.sy);
+                if (p == 2) v = add_rn(v, jr.sz);
+                d[p * CH] = v;
+              }
+              s_jidx[w][n + rank] = q;
             }
+            // the first valid slot that did not fit starts the next chunk
+            const unsigned rest = __ballot_sync(FULL, ok && rank == take);
+            src = rest ? src + __ffs(rest) - 1 : src + 32;
+            n += take;
           }
-          __syncthreads();
-          if (vi) {
-            for (int q = 0; q < n; ++q) {
-              if (!(s_j[3 * CH + q] > T(0.5)) || base + q == s + jr.self_off) continue;
-              const V3<T> drm{xi - s_j[q], yi - s_j[CH + q], zi - s_j[2 * CH + q]};
-              const T com2 = add_rn(add_rn(mul_rn(drm.x, drm.x), mul_rn(drm.y, drm.y)),
-                                    mul_rn(drm.z, drm.z));
-              const bool mlj = com2 < ph.rc2lj, mel = com2 < ph.rc2;
-              if (!(mlj || mel)) continue;
-              const int kk = ci * ph.K + to_int(s_j[4 * CH + q]);
-              molecule_pair(si, s_j + q, drm, mlj, mel, kk, s_terms, s_tab, ph, a);
-            }
-          }
-          __syncthreads();
+          __syncwarp();
+          warp_chunk(s_i, s_jw, s_jidx[w], s_list, s_terms, s_tab, ph, n,
+                     s + jr.self_off, vi, own, e);
         }
       }
     }
   }
   if (s < W) {
-    const T vals[NOUT] = {a.F.x, a.F.y, a.F.z, a.M.x, a.M.y,
-                          a.M.z, a.V.x, a.V.y, a.V.z, T(0)};
-    for (int p = 0; p < NOUT; ++p) o[(long long)p * W] = vals[p];
+#pragma unroll
+    for (int p = 0; p < 9; ++p) o[(long long)p * W] = own[p];
+    o[9LL * W] = T(0);
   }
   // block sums of the halved energies
-  T u[3] = {warp_sum(T(0.5) * a.u6), warp_sum(T(0.5) * a.uX),
-            warp_sum(T(0.5) * a.rf)};
-  const int lane = t & 31, w = t >> 5;
+  T u[3] = {warp_sum(T(0.5) * e[0]), warp_sum(T(0.5) * e[1]),
+            warp_sum(T(0.5) * e[2])};
   if (lane == 0)
-    for (int c = 0; c < 3; ++c) red[c][w] = u[c];
+    for (int c2 = 0; c2 < 3; ++c2) red[c2][w] = u[c2];
   __syncthreads();
   if (t < 3) {
     T sum = T(0);
-    for (int k = 0; k < TI / 32; ++k) sum += red[t][k];
+    for (int k = 0; k < NW; ++k) sum += red[t][k];
     part[3 * blk + t] = sum;
   }
 }

@@ -393,8 +393,9 @@ _ARGTYPES = {
 _NB_ARGS = {"ms_dense": 4, "ms_packed": 3}
 
 
-def _lib(name):
-    lib = _build.load(name)
+def type_lib(lib, name):
+    """Set the argument and result types of a loaded csrc/<name>.cu
+    library's entry points (once); returns it."""
     if not getattr(lib, "_typed", False):
         for suffix in ("_f32", "_f64"):
             fn = getattr(lib, name + suffix)
@@ -405,6 +406,10 @@ def _lib(name):
         nb.restype = _CI
         lib._typed = True
     return lib
+
+
+def _lib(name):
+    return type_lib(_build.load(name), name)
 
 
 def launch(name, r_i, out_shape, nb_args, args, *, meta, box, rc2, rc2_lj,
@@ -421,7 +426,10 @@ def launch(name, r_i, out_shape, nb_args, args, *, meta, box, rc2, rc2_lj,
     nb = getattr(lib, name + "_num_blocks")(*nb_args)
     part = torch.empty((nb, 3), dtype=dtype, device=dev)
     fn = getattr(lib, name + ("_f32" if dtype == torch.float32 else "_f64"))
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # a CPU tensor reaches here only with a library built for the CPU
+    # (tools/cuda_emu.py), which takes no stream
+    stream = torch.cuda.current_stream(dev).cuda_stream \
+        if dev.type == "cuda" else None
     _build.check(fn(*args(out, part, tab.data_ptr(), terms.data_ptr()),
                     float(box[1]), float(box[2]), float(rc2), float(rc2_lj),
                     float(screen_alpha), int(meta.K), int(tab.numel()),
@@ -472,16 +480,22 @@ def multisite_cell_forces(
         raise ValueError(f"{what}: device {r_i.device}")
     if not (r_i.is_contiguous() and r_j.is_contiguous()):
         raise ValueError(f"{what}: r_i and r_j must be contiguous")
-    P = r_i.shape[2]
-    res = launch(
-        "ms_dense", r_i, (nz, ny, NOUT, W), (nx, ny, nz, cap),
-        lambda out, part, tab, terms: (
-            r_i.data_ptr(), r_j.data_ptr(), out.data_ptr(), part.data_ptr(),
-            tab, terms, nx, ny, nz, cap, P, int(bool(z_halo)),
-            int(bool(y_halo))),
-        meta=meta, box=box, rc2=rc2, rc2_lj=rc2_lj, screen_alpha=screen_alpha)
+    res = launch_dense(r_i, r_j, **kw)
     multisite_cell_forces.launches += 1
     return res
 
 
 multisite_cell_forces.launches = 0
+
+
+def launch_dense(r_i, r_j, *, nx, ny, nz, cap, box, rc2, rc2_lj, screen_alpha,
+                 meta, z_halo=False, y_halo=False):
+    """The launch of csrc/ms_dense.cu behind multisite_cell_forces, on
+    checked inputs."""
+    return launch(
+        "ms_dense", r_i, (nz, ny, NOUT, nx * cap), (nx, ny, nz, cap),
+        lambda out, part, tab, terms: (
+            r_i.data_ptr(), r_j.data_ptr(), out.data_ptr(), part.data_ptr(),
+            tab, terms, nx, ny, nz, cap, r_i.shape[2], int(bool(z_halo)),
+            int(bool(y_halo))),
+        meta=meta, box=box, rc2=rc2, rc2_lj=rc2_lj, screen_alpha=screen_alpha)

@@ -312,18 +312,25 @@ def multisite_cell_forces_packed(
         raise ValueError(f"{what}: device {r_i.device}")
     if not (r_i.is_contiguous() and r_j.is_contiguous() and tbl.is_contiguous()):
         raise ValueError(f"{what}: inputs must be contiguous")
-    res = launch(
-        "ms_packed", r_i, (nz, ny, NOUT, Wp), (Wp, ny, nz),
-        lambda out, part, tab, terms: (
-            tbl.data_ptr(), r_i.data_ptr(), r_j.data_ptr(), out.data_ptr(),
-            part.data_ptr(), tab, terms, nx, ny, nz, cap, P, Wp, Wjp,
-            cell_plane, int(bool(z_halo))),
-        meta=meta, box=box, rc2=rc2, rc2_lj=rc2_lj, screen_alpha=screen_alpha)
+    res = launch_packed(tbl, r_i, r_j, **kw)
     multisite_cell_forces_packed.launches += 1
     return res
 
 
 multisite_cell_forces_packed.launches = 0
+
+
+def launch_packed(tbl, r_i, r_j, *, nx, ny, nz, cap, Wp, Wjp, cell_plane, box,
+                  rc2, rc2_lj, screen_alpha, meta, z_halo=False):
+    """The launch of csrc/ms_packed.cu behind
+    multisite_cell_forces_packed, on checked inputs."""
+    return launch(
+        "ms_packed", r_i, (nz, ny, NOUT, Wp), (Wp, ny, nz),
+        lambda out, part, tab, terms: (
+            tbl.data_ptr(), r_i.data_ptr(), r_j.data_ptr(), out.data_ptr(),
+            part.data_ptr(), tab, terms, nx, ny, nz, cap, r_i.shape[2], Wp,
+            Wjp, cell_plane, int(bool(z_halo))),
+        meta=meta, box=box, rc2=rc2, rc2_lj=rc2_lj, screen_alpha=screen_alpha)
 
 
 class CudaMultiSitePackedPath(CudaMultiSitePath):

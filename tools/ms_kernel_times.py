@@ -1,0 +1,149 @@
+"""K5 and K6 of several kernel source trees side by side on one NVIDIA GPU.
+
+    python3 tools/ms_kernel_times.py [--csrc TAG=DIR ...] [--reps 5]
+
+Builds csrc/ms_packed.cu (K5) and csrc/ms_dense.cu (K6) of each given
+source tree (default: the checkout's own, tag "tree"; DIR holds a copy of
+ls1_mardyn_tpu_torch/csrc, e.g. a parent commit's from `git archive`)
+with the port's nvcc flags into build/kernels/variants/<tag>/, one nvcc
+per source, all started together, and prints each library's ptxas
+report (registers, spills, shared memory).  Each variant is then held
+against the plain versions on chip_smoke.py's K5 and K6 scenes (f32 and
+f64, every case), and every variant's K5 and K6 are timed with CUDA
+events on the full-width 2CLJ+quadrupole state of chip_smoke.py
+(N = 1,061,208, rho 0.45, rc 6.2, f32: K5 on the packed rows that
+force_mode="auto" builds, K6 on the dense rows of "ms_dense"), in turns
+A B ... B A, so that the variants compare within one call on one card,
+and held against the plain versions there (each output's error
+relative to its max, as chip_smoke.py reports it).
+A variant is launched through the port's wrappers: its library takes
+the place of the checkout's in ops/_build.py's cache.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+LIBS = ("ms_packed", "ms_dense")
+
+
+def build_variants(variants):
+    """{tag: {lib: CDLL}} built from each variant's sources; prints the
+    ptxas reports."""
+    from ls1_mardyn_tpu_torch.ops import _build
+
+    procs = {}
+    for tag, src in variants.items():
+        out = _build.BUILD_DIR / "variants" / tag
+        out.mkdir(parents=True, exist_ok=True)
+        for lib in LIBS:
+            so = out / f"lib{lib}.so"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                   str(Path(src) / f"{lib}.cu")]
+            procs[tag, lib] = (so, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for (tag, lib), (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag}/{lib}.cu:\n{log[-4000:]}")
+        so.with_suffix(".log").write_text(log)
+        libs.setdefault(tag, {})[lib] = ctypes.CDLL(str(so))
+        regs = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                if "Used" in ln or "spill" in ln]
+        cs.say("ptxas", variant=tag, lib=lib, report=json.dumps(regs))
+    return libs
+
+
+def use(libs):
+    """Make the port's wrappers launch these libraries."""
+    from ls1_mardyn_tpu_torch.ops import _build
+
+    for lib, cdll in libs.items():
+        _build._LOADED[lib] = cdll
+
+
+def full_width_inputs():
+    """K5's and K6's arguments on the full-width multi-site state."""
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+
+    data, _ = cs.lattice_scene(cs.N_MS, cs.RHO_MS, "2cljq", rc=cs.RC_MS)
+    calls = {}
+    for key, mode in (("K5", "auto"), ("K6", "ms_dense")):
+        sim = MDSimulation(cs.scene_config(data.box, cs.RC_MS),
+                           phase_space_data=data, device="cuda",
+                           force_mode=mode)
+        path, mol = sim.engine._force_fn, sim.engine.mol
+        nx, ny, nz = path.spec.dims
+        if key == "K5":
+            tbl, r_i, r_j, _, _ = path._build_views(mol)
+            args = (tbl, r_i, r_j)
+            kw = dict(Wp=path.Wp, Wjp=path.Wjp, cell_plane=path.cell_plane)
+        else:
+            r_i, _ = path.layout(mol)
+            args = (r_i, path.x_halo(r_i).contiguous())
+            kw = {}
+        kw.update(nx=nx, ny=ny, nz=nz, cap=path.spec.cap, box=path.spec.box,
+                  rc2=path.rc2, rc2_lj=path.rc2_lj,
+                  screen_alpha=path.screen_alpha, meta=path.meta)
+        calls[key] = (args, kw)
+        del sim
+    return calls
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--csrc", action="append", default=[],
+                    help="TAG=DIR of a copy of ls1_mardyn_tpu_torch/csrc")
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    smi = cs.phase_device()
+    import ls1_mardyn_tpu_torch  # noqa: F401  (precision flags)
+    from ls1_mardyn_tpu_torch.ops import cuda_ms, cuda_ms_packed
+
+    variants = dict(v.split("=", 1) for v in args.csrc) or {
+        "tree": str(ROOT / "ls1_mardyn_tpu_torch" / "csrc")}
+    libs = build_variants(variants)
+    for tag, lib in libs.items():
+        use(lib)
+        cs.say("check", variant=tag)
+        cs.phase_k5("cuda")
+        cs.phase_k6("cuda")
+    calls = full_width_inputs()
+    kernels = {"K5": cuda_ms_packed.multisite_cell_forces_packed,
+               "K6": cuda_ms.multisite_cell_forces}
+    times = {tag: {"K5": [], "K6": []} for tag in libs}
+    order = list(libs) + list(libs)[::-1]
+    for tag in order:
+        use(libs[tag])
+        for key, fn in kernels.items():
+            a, kw = calls[key]
+            times[tag][key].append(cs.cuda_ms(lambda: fn(*a, **kw), args.reps))
+    plain = {"K5": cuda_ms_packed.multisite_cell_forces_packed_reference,
+             "K6": cuda_ms.multisite_cell_forces_reference}
+    ref = {key: fn(*calls[key][0], **calls[key][1]) for key, fn in plain.items()}
+    for tag in libs:
+        use(libs[tag])
+        for key, fn in kernels.items():
+            a, kw = calls[key]
+            errs = cs.ms_rel_errors(fn(*a, **kw), ref[key])
+            cs.say("times", variant=tag, kernel=key,
+                   ms=json.dumps([round(t, 3) for t in times[tag][key]]),
+                   rel_to_plain=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
+                   gpu=repr(smi))
+
+
+if __name__ == "__main__":
+    os.environ.setdefault("PYTHONUNBUFFERED", "1")
+    main()
