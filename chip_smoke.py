@@ -23,12 +23,17 @@ non-zero and never prints the result line):
   device   GPU name and power limit, torch / CUDA versions
   build    nvcc build of every kernel, seconds, ptxas registers
   K1       LJ cell forces vs plain, 16^3 cells cut from the seed, cap 32
-           and 64, f32 (max|dF|/max|F| <= 1e-5) and f64 (<= 1e-12)
+           and 64, f32 (max|dF|/max|F| <= 1e-5) and f64 (<= 1e-12); also
+           on the 6^3 scenes of check_scenes (sparse cells of 0, 1 and up
+           to 16 molecules, full cells, pairs within an ulp of rc), the
+           first 4 planes of an 8-plane tensor read in place; each case's
+           ordered in-cutoff pair count equal to the plain version's
   K2       shift-merge rebin vs plain on a state drifted 12 steps,
            bit-identical, f32 and f64; overflow on a two-cell hop
   K3       cell-window forces vs plain on 12^3 cells cut from the seed,
            cap 32 and 64, f32 and f64 (limits as K1): plain, with Vi,
-           with explicit z halo rows, and at ny = 2
+           with explicit z halo rows, and at ny = 2; and on K1's sparse,
+           full and near-rc scenes; in-cutoff counts as K1
   K4       row forces vs plain on the same cells: cell-local and
            absolute coordinates, z and y halo rows, nx = 2; absolute f32
            against the f64 result (<= 5e-3, see phase_k4)
@@ -75,9 +80,12 @@ non-zero and never prints the result line):
            within 10%, unit quaternions, peak memory above what the
            script held before
   times    K1..K10 against their plain versions at the shapes their
-           paths gave them (CUDA events), and each kernel's bound; K3 and
-           K4 also against plain on K1's grid (56,60,60), K7-K10 on K1's
-           state beside K1; the multi-site plain versions on a 2-row z
+           paths gave them (CUDA events), and each kernel's bound (its
+           in-cutoff count checked once against the plain version's); K1
+           and K3 also report what their warps walk (j slots staged, the
+           share culled, j iterations; lj_warp_walk) and their ptxas
+           registers and spills; K3 and K4 also against plain on K1's
+           grid (56,60,60), K7-K10 on K1's state beside K1; the multi-site plain versions on a 2-row z
            slab, and at full width when that extrapolates to under 60 s;
            K5 and K6 also report the candidate tests their warp windows
            walk (and PR 4's block windows), the ordered pairs inside the
@@ -208,6 +216,83 @@ def cut_sim(cap, dtype, device, nd=16, edge=2.9):
     return sim
 
 
+def lj_scene(dims, cap, cl, counts, seed, rc=RC, near_rc=0, eps=None,
+             planes=4, dtype=torch.float64, device="cpu"):
+    """Cell-local planes [nz, ny, planes, nx*cap] (x, y, z, valid, then
+    junk planes, as the RMM state's) for the LJ kernel checks.  Cell
+    (x, y, z) holds counts[z, y, x] molecules in random slots: at random
+    at least 0.75 apart across the periodic box, or, in a full cell (32
+    or 64 of cap), on a jittered 4x4x2 or 4x4x4 lattice.  near_rc more
+    molecules each sit at distance rc (1 + k eps), k in -2..2, from a
+    random one in another cell (eps: the dtype's), so that r^2 rounds to
+    either side of rc^2.  Invalid slots hold junk coordinates inside
+    their cell, which a kernel must never use."""
+    nx, ny, nz = dims
+    counts = np.asarray(counts)
+    rng = np.random.default_rng(seed)
+    if eps is None:
+        eps = float(torch.finfo(dtype).eps)
+    n_c = np.array([nx, ny, nz])
+    L = n_c * cl
+    pos = rng.uniform(0, cl, size=(nz, ny, nx, cap, 3))
+    valid = np.zeros((nz, ny, nx, cap), bool)
+    placed = {}  # cell (x, y, z) -> absolute positions
+
+    def fits(p):
+        c = np.floor(p / cl).astype(int)
+        near = [q for off in np.ndindex(3, 3, 3)
+                for q in placed.get(tuple((c + np.array(off) - 1) % n_c), ())]
+        if not near:
+            return True
+        d = p - np.array(near)
+        d -= np.round(d / L) * L
+        return bool(((d * d).sum(1) >= 0.75 ** 2).all())
+
+    def put(p):
+        c = np.floor(p / cl).astype(int) % n_c
+        x, y, z = c
+        free = np.flatnonzero(~valid[z, y, x])
+        if len(free) == 0:
+            return False
+        s = rng.choice(free)
+        valid[z, y, x, s] = True
+        pos[z, y, x, s] = p - c * cl
+        placed.setdefault((x, y, z), []).append(p)
+        return True
+
+    for z, y, x in np.ndindex(nz, ny, nx):
+        n = int(counts[z, y, x])
+        base = np.array([x, y, z]) * cl
+        if n in (32, 64) and n <= cap:
+            g = np.array([4, 4, n // 16])
+            for k in np.ndindex(*g):
+                jit = rng.uniform(-0.1, 0.1, 3)
+                put(base + (np.array(k) + 0.5 + jit) * cl / g)
+            continue
+        for _ in range(n):
+            for _ in range(200):
+                p = base + rng.uniform(0, cl, 3)
+                if fits(p):
+                    put(p)
+                    break
+    owners = [q for qs in placed.values() for q in qs]
+    for t in range(near_rc):
+        a = owners[rng.integers(len(owners))]
+        u = rng.normal(size=3)
+        u /= np.linalg.norm(u)
+        p = (a + rc * (1.0 + (t % 5 - 2) * eps) * u) % L
+        if fits(p):
+            put(p)
+    r = np.concatenate([pos, valid[..., None].astype(np.float64)], -1)
+    out = torch.as_tensor(r, dtype=dtype).permute(0, 1, 4, 2, 3).reshape(
+        nz, ny, 4, nx * cap)
+    if planes > 4:
+        junk = torch.as_tensor(rng.normal(size=(nz, ny, planes - 4, nx * cap)),
+                               dtype=dtype)
+        out = torch.cat([out, junk], dim=2)
+    return out.contiguous().to(device)
+
+
 def phase_device():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -249,23 +334,74 @@ def rel_errors(a, b):
             abs(float(ua - ub) / float(ub)), abs(float(va - vb) / float(vb)))
 
 
+SCENE_CL, SCENE_LJ = 2.6, dict(eps24=24.0, sig2=1.0, shift6=0.1, rc2=RC ** 2)
+_SCENES = {}
+
+
+def check_scenes(cap, dtype, device):
+    """The K1/K3 check scenes on a 6^3 grid of edge 2.6 (lj_scene), with
+    8 planes (K1 reads the first 4 in place): "sparse", 0 or 1 molecule
+    in a third of the cells each and up to 16 (cap 32) or 40 (cap 64)
+    elsewhere, so that warps run split in two or four groups; "full",
+    every cell full (32 or 64 of cap); "near_rc", 0-3 molecules a cell
+    and 300 more each at rc (1 + k eps) from another, so that r^2 falls
+    within an ulp of rc^2 on either side."""
+    key = (cap, dtype)
+    if key not in _SCENES:
+        rng = np.random.default_rng(cap)
+        shape = (6, 6, 6)
+        pick = rng.integers(0, 3, size=shape)
+        sparse = np.where(pick == 0, 0, np.where(
+            pick == 1, 1, rng.integers(2, 17 if cap == 32 else 41, size=shape)))
+        near = rng.integers(0, 4, size=shape)
+        _SCENES[key] = {
+            name: lj_scene((6, 6, 6), cap, SCENE_CL, counts, seed=cap + i,
+                           near_rc=n_rc, planes=8, dtype=dtype)
+            for i, (name, counts, n_rc) in enumerate((
+                ("sparse", sparse, 0), ("full", np.full(shape, min(cap, 64)), 0),
+                ("near_rc", near, 300)))}
+    return {k: v.to(device) for k, v in _SCENES[key].items()}
+
+
+def check_counts(what, r_i, r_j=None, *, kernel, dims, cap, cell_len, rc2,
+                 z_halo=False):
+    """The ordered pairs inside the cutoff that the kernel evaluates
+    against the plain version's count, exactly; returns the count."""
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import inside_pairs, inside_pairs_reference
+
+    kw = dict(dims=dims, cap=cap, cell_len=cell_len, rc2=rc2, z_halo=z_halo)
+    got = inside_pairs(r_i, r_j, kernel=kernel, **kw)
+    want = inside_pairs_reference(r_i, r_j, **kw)
+    check(got == want, f"{what}: {got} ordered pairs inside the cutoff, "
+                       f"the plain version {want}")
+    return got
+
+
 def phase_k1(device):
     from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces, lj_cell_forces_reference
 
     for dtype, lim in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         for cap in (32, 64):
             sim = cut_sim(cap, dtype, device)
-            r4 = sim.state.planes[:, :, :4, :]
-            kw = dict(dims=sim.spec.dims, cap=cap, cell_len=sim.cell_len,
-                      eps24=sim.eps24, sig2=sim.sig2, shift6=sim.shift6,
-                      rc2=sim.rc2)
-            ef, eu, ev = rel_errors(lj_cell_forces(r4, **kw),
-                                    lj_cell_forces_reference(r4, **kw))
+            cases = {"seed": (sim.state.planes[:, :, :4, :], sim.spec.dims,
+                              sim.cell_len, dict(eps24=sim.eps24, sig2=sim.sig2,
+                                                 shift6=sim.shift6, rc2=sim.rc2))}
+            for name, r8 in check_scenes(cap, dtype, device).items():
+                cases[name] = (r8[:, :, :4, :], (6, 6, 6), (SCENE_CL,) * 3,
+                               SCENE_LJ)
+            errs, counts = {}, {}
+            for tag, (r4, dims, cl, lj) in cases.items():
+                kw = dict(dims=dims, cap=cap, cell_len=cl, **lj)
+                errs[tag] = max(rel_errors(lj_cell_forces(r4, **kw),
+                                           lj_cell_forces_reference(r4, **kw)))
+                counts[tag] = check_counts(f"K1 {tag} ({dtype}, cap {cap})",
+                                           r4, kernel="K1", dims=dims, cap=cap,
+                                           cell_len=cl, rc2=lj["rc2"])
             say("K1", dtype=str(dtype).split(".")[1], cap=cap,
-                grid=sim.spec.dims, rel_F=f"{ef:.3e}", rel_u6=f"{eu:.3e}",
-                rel_vir=f"{ev:.3e}", limit=lim)
-            check(ef <= lim and eu <= lim and ev <= lim,
-                  f"K1 disagrees with its plain version ({dtype}, cap {cap})")
+                rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
+                inside_ordered=json.dumps(counts), counts_equal=True, limit=lim)
+            check(max(errs.values()) <= lim,
+                  f"K1 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
     say("K1", launches=lj_cell_forces.launches)
 
 
@@ -347,21 +483,28 @@ def phase_k3(device):
             # explicit z halo rows: the inner rows against the whole cut,
             # whose first and last row are then no periodic images
             cases = {
-                "plain": (r_i, None, (nd,) * 3, {}),
-                "vi": (r_i, None, (nd,) * 3, dict(compute_vi=True)),
-                "z_halo": (r_i[1:-1].contiguous(), r_i, (nd, nd, nd - 2),
+                "plain": (r_i, None, (nd,) * 3, cl, lj, {}),
+                "vi": (r_i, None, (nd,) * 3, cl, lj, dict(compute_vi=True)),
+                "z_halo": (r_i[1:-1].contiguous(), r_i, (nd, nd, nd - 2), cl, lj,
                            dict(z_halo=True)),
-                "ny2": (sub_block(r_i, cap, 5, 2, 1), None, (5, 2, 1), {}),
+                "ny2": (sub_block(r_i, cap, 5, 2, 1), None, (5, 2, 1), cl, lj, {}),
             }
-            errs = {}
-            for tag, (ri, rj, dims, extra) in cases.items():
-                kw = dict(dims=dims, cap=cap, cell_len=cl, **lj, **extra)
+            for name, r8 in check_scenes(cap, dtype, device).items():
+                cases[name] = (r8[:, :, :4, :].contiguous(), None, (6, 6, 6),
+                               (SCENE_CL,) * 3, SCENE_LJ, {})
+            errs, counts = {}, {}
+            for tag, (ri, rj, dims, c, p, extra) in cases.items():
+                kw = dict(dims=dims, cap=cap, cell_len=c, **p, **extra)
                 errs[tag] = max(rel_errors(
                     lj_cell_forces_cw(ri, rj, **kw),
                     lj_cell_forces_cw_reference(ri, rj, **kw)))
+                counts[tag] = check_counts(
+                    f"K3 {tag} ({dtype}, cap {cap})", ri, rj, kernel="K3",
+                    dims=dims, cap=cap, cell_len=c, rc2=p["rc2"],
+                    z_halo=bool(extra.get("z_halo")))
             say("K3", dtype=str(dtype).split(".")[1], cap=cap, grid=(nd,) * 3,
                 rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
-                limit=lim)
+                inside_ordered=json.dumps(counts), counts_equal=True, limit=lim)
             check(max(errs.values()) <= lim,
                   f"K3 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
     say("K3", launches=lj_cell_forces_cw.launches)
@@ -1369,6 +1512,66 @@ def ms_walk_report(lib, bound, r_i, cells, nx, cap, tbl=None):
         ptxas=ptxas_report(lib))
 
 
+# the bound's in-cutoff count, checked against the plain version's once
+# per state: {(dims, cap): ordered pairs}
+_BOUND_CHECKED = {}
+
+
+def lj_warp_walk(r_i, dims, cap, cell_len, rc2, cull=True, split=True):
+    """What the warp skeleton of K1 and K3 (csrc/lj_warp.cuh) walks on
+    this state, counted here with torch from the same data: per warp (32
+    slots of an i cell holding n_i valid ones), the valid j slots of its
+    27 neighbour cells staged, those kept by the box cull (boxdist2 <
+    rc^2, rounded as the kernel rounds it; all with cull=False), and the
+    j iterations walked, with the warp split in two halves (ways = 2)
+    for n_i <= 16: 32/ways iterations for each full ring of 32 kept
+    slots and ceil(rest/ways) for the last.  cull=False and split=False
+    count the earlier design steps without the cull or the split
+    (tools/lj_kernel_times.py --walk); the kernel has both.  Returns the
+    totals and the means per warp with a valid i (the block skeleton
+    walked 27 * cap iterations per i slot)."""
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import _cells, _local_j_cells
+
+    nx, ny, nz = dims
+    nch = cap // 32
+    pos, val = _cells(r_i, nx, cap)
+    pw = pos.reshape(nz, ny, nx, nch, 32, 3)
+    vw = val.reshape(nz, ny, nx, nch, 32)
+    big = torch.finfo(pos.dtype).max
+    lo = torch.where(vw[..., None], pw, big).amin(4)
+    hi = torch.where(vw[..., None], pw, -big).amax(4)
+    n_i = vw.sum(-1)
+    kept = torch.zeros_like(n_i)
+    staged = torch.zeros_like(n_i)
+    j_cells = _local_j_cells(pos, val, cell_len, nz, False)
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                pj, vj = j_cells(0, nz, (dz, dy, dx))
+                pj = pj[:, :, :, None]  # [z, y, x, 1, cap, 3]
+                a = lo[:, :, :, :, None] - pj
+                b = pj - hi[:, :, :, :, None]
+                g = torch.where(a > 0, a, torch.where(b > 0, b, 0.0))
+                bd2 = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] \
+                    + g[..., 2] * g[..., 2]
+                vj = vj[:, :, :, None]
+                staged += vj.sum(-1)
+                kept += (vj & ((bd2 < rc2) | (not cull))).sum(-1)
+    ways = torch.where((n_i <= 16) & split, 2, 1)
+    iters = (kept // 32) * (32 // ways) + (kept % 32 + ways - 1) // ways
+    live = n_i > 0
+    nw = int(live.sum())
+    return {"warps_with_i": nw, "j_staged": int(staged[live].sum()),
+            "j_kept": int(kept[live].sum()),
+            "culled_share": round(1.0 - float(kept[live].sum())
+                                  / float(staged[live].sum()), 4),
+            "j_iterations": int(iters[live].sum()),
+            "j_iterations_per_warp": round(float(iters[live].sum()) / nw, 1),
+            "j_kept_per_warp": round(float(kept[live].sum()) / nw, 1),
+            "split_share": round(float(((ways == 2) & live).sum()) / nw, 4),
+            "block_skeleton_iterations_per_warp": 27 * cap}
+
+
 def lj_bound(r_i, dims, cap, lj, out_planes, j_elems, nbytes=None):
     """Least time the card could take for an LJ cell-force call on these
     inputs: bytes (inputs read once, the force planes written once)
@@ -1379,11 +1582,13 @@ def lj_bound(r_i, dims, cap, lj, out_planes, j_elems, nbytes=None):
     pair of two different occupied slots in the same or neighbouring
     cells (3 subtractions, 3 products, 2 sums for r^2), and 25 more per
     pair inside the cutoff (22 for the LJ term and the sums on i, 3 for
-    the reaction on j).  The pairs inside the cutoff are counted by a
-    launch with eps24 = 0 and shift6 = 1, whose halved u6 is the
-    unordered count.  `nbytes` replaces the byte count where the inputs
-    are not the dense planes (K10's packed pencils and tables)."""
-    from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces_cw
+    the reaction on j).  The pairs inside the cutoff are counted by K3's
+    launch with eps24 = 0 and shift6 = 1 (ops/cuda_lj.inside_pairs; half
+    the ordered count); since K3 is a kernel under test, the first call
+    on each state (grid and cap) also counts them with the plain version
+    and fails if the two differ.  `nbytes` replaces the byte count where the inputs are not
+    the dense planes (K10's packed pencils and tables)."""
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import inside_pairs
 
     nx, ny, nz = dims
     occ = (r_i[:, :, 3] > 0.5).reshape(nz, ny, nx, cap).sum(-1).double()
@@ -1391,10 +1596,17 @@ def lj_bound(r_i, dims, cap, lj, out_planes, j_elems, nbytes=None):
              for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
     # ordered slot pairs incl. each slot with itself -> unordered, no self
     candidates = (float((occ * nb).sum()) - float(occ.sum())) / 2.0
-    _, u6, _ = lj_cell_forces_cw(
-        r_i, dims=dims, cap=cap,
-        cell_len=lj["cell_len"], eps24=0.0, sig2=0.0, shift6=1.0, rc2=lj["rc2"])
-    inside = float(u6)
+    kw = dict(dims=dims, cap=cap, cell_len=lj["cell_len"], rc2=lj["rc2"])
+    key = (tuple(dims), cap)
+    if key not in _BOUND_CHECKED:
+        ordered = check_counts(f"the bound's count on {dims}", r_i,
+                               kernel="K3", **kw)
+        _BOUND_CHECKED[key] = ordered
+        say("times", bound_count_checked=True, grid=dims, cap=cap,
+            inside_ordered_K3_and_plain=ordered)
+    else:
+        ordered = inside_pairs(r_i, **kw)
+    inside = ordered / 2.0
     size = r_i.element_size()
     if nbytes is None:
         nbytes = (r_i.numel() + j_elems + out_planes * r_i.numel() // 4) * size
@@ -1444,7 +1656,9 @@ def phase_times(sim_rmm, sim_gen, smi):
         ms_macro=f"{res[True][0]:.3f}", plain_ms_macro=f"{res[True][1]:.3f}",
         pair_lanes_per_s=f"{pairs / res[False][0] * 1e3:.4e}",
         max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
-        bound=json.dumps(bound), gpu=repr(smi))
+        bound=json.dumps(bound), gpu=repr(smi),
+        walk=json.dumps(lj_warp_walk(r4, dims, cap, rsim.cell_len, rsim.rc2)),
+        ptxas=json.dumps(ptxas_report("lj_cells")))
     out["K1"] = dict(max_abs_err=err, ms=res[False][0], plain_ms=res[False][1],
                      bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
@@ -1490,6 +1704,10 @@ def phase_times(sim_rmm, sim_gen, smi):
         if key == "K3":
             extra["ms_macro_vi"] = "%.3f" % cuda_ms(
                 lambda: fn(*args, compute_vi=True, **kw), 10)
+            extra["walk"] = json.dumps(lj_warp_walk(
+                r_i, dims, cap, path.spec.cell_len, path.rc2))
+        extra["ptxas"] = json.dumps(ptxas_report(
+            "lj_cells_cw" if key == "K3" else "lj_cells_row"))
         say("times", kernel=key, grid=dims, cap=cap, pair_lanes=pairs,
             ms_fast=f"{res[False][0]:.3f}", plain_ms_fast=f"{res[False][1]:.3f}",
             ms_macro=f"{res[True][0]:.3f}", plain_ms_macro=f"{res[True][1]:.3f}",
@@ -1520,6 +1738,8 @@ def phase_times(sim_rmm, sim_gen, smi):
         K1_ms=f"{out['K1']['ms']:.3f}",
         K3_ms="%.3f" % cuda_ms(lambda: cuda_lj.lj_cell_forces_cw(
             r1, cell_len=rsim.cell_len, **kw1), 10),
+        K3_ms_macro="%.3f" % cuda_ms(lambda: cuda_lj.lj_cell_forces_cw(
+            r1, cell_len=rsim.cell_len, **dict(kw1, compute_macro=True)), 10),
         K4_ms="%.3f" % cuda_ms(lambda: cuda_lj.lj_cell_forces_row(
             r1, rj1, box=rsim.spec.box, local_coords=True, **kw1), 10))
     out.update(variant_times(rsim, r4, smi, lj_times))

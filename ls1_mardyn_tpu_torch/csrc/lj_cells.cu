@@ -9,12 +9,13 @@
 // The j source is r itself: every neighbour cell is found by a periodic
 // wrap of the cell index, shifted by its cell offset times the cell edge.
 //
-// The kernel skeleton, its design and what bounds it are lj_pair.cuh's.
-// The TPU kernel's halo-padded j view, phase-stacked j copies and the
+// The kernel skeleton (a warp a 32-slot i chunk, box-culled and
+// ballot-compacted j slots), its design and what bounded the block
+// skeleton before it are lj_warp.cuh's.  The TPU kernel's halo-padded j view, phase-stacked j copies and the
 // plane-3 scalar packing are layout tricks of the TPU and are not
 // reproduced.
 
-#include "lj_pair.cuh"
+#include "lj_warp.cuh"
 
 namespace {
 
@@ -24,8 +25,8 @@ int launch(const void* r, void* f, void* part, int nx, int ny, int nz, int cap,
            double sig2, double shift6, double rc2, int macro, void* stream) {
   const ljk::LocalNbr<T> nbr{(const T*)r, nx, ny, nz, cap, planes, 0,
                              T(clx), T(cly), T(clz)};
-  return ljk::launch_cells<T, false>(r, planes, f, part, nx, ny, nz, cap, nbr,
-                                     eps24, sig2, shift6, rc2, macro, 0, stream);
+  return ljw::launch_warp<T, false>(r, planes, f, part, nx, ny, nz, cap, nbr,
+                                    eps24, sig2, shift6, rc2, macro, 0, stream);
 }
 
 }  // namespace
@@ -33,7 +34,7 @@ int launch(const void* r, void* f, void* part, int nx, int ny, int nz, int cap,
 extern "C" {
 
 int lj_cells_num_blocks(int nx, int ny, int nz, int cap) {
-  return ljk::num_blocks(nx, ny, nz, cap);
+  return ljw::num_blocks(nx, ny, nz, cap);
 }
 
 int lj_cells_f32(const void* r, void* f, void* part, int nx, int ny, int nz,

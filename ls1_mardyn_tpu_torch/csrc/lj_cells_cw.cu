@@ -16,12 +16,14 @@
 //     images, and both count.
 // The TPU kernel's j view carries a 1+3-cell x halo and four
 // phase-shifted copies so that every window read is lane-aligned; here a
-// block computes its neighbour cell's address itself (ljk::LocalNbr), x
+// warp computes its neighbour cell's address itself (ljk::LocalNbr), x
 // and y wrap in the index, and no halo or copy is stored.
 //
-// The kernel skeleton, its design and what bounds it are lj_pair.cuh's.
+// The kernel skeleton (a warp a 32-slot i chunk, box-culled and
+// ballot-compacted j slots), its design and what bounded the block
+// skeleton before it are lj_warp.cuh's.
 
-#include "lj_pair.cuh"
+#include "lj_warp.cuh"
 
 namespace {
 
@@ -32,8 +34,8 @@ int launch(const void* ri, const void* rj, void* f, void* part, int nx, int ny,
            int macro, int vi, void* stream) {
   const ljk::LocalNbr<T> nbr{(const T*)rj, nx, ny, nz, cap, pj, zhalo,
                              T(clx), T(cly), T(clz)};
-  return ljk::launch_cells<T, true>(ri, pi, f, part, nx, ny, nz, cap, nbr, eps24,
-                                    sig2, shift6, rc2, macro, vi, stream);
+  return ljw::launch_warp<T, true>(ri, pi, f, part, nx, ny, nz, cap, nbr, eps24,
+                                   sig2, shift6, rc2, macro, vi, stream);
 }
 
 }  // namespace
@@ -41,7 +43,7 @@ int launch(const void* ri, const void* rj, void* f, void* part, int nx, int ny,
 extern "C" {
 
 int lj_cells_cw_num_blocks(int nx, int ny, int nz, int cap) {
-  return ljk::num_blocks(nx, ny, nz, cap);
+  return ljw::num_blocks(nx, ny, nz, cap);
 }
 
 int lj_cells_cw_f32(const void* ri, const void* rj, void* f, void* part, int nx,

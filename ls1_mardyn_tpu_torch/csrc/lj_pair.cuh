@@ -1,13 +1,17 @@
-// Device code shared by the LJ-12-6 cell kernels (lj_cells.cu,
-// lj_cells_cw.cu, lj_cells_row.cu): the kernel skeleton (cell decode, the
-// 27-offset loop with its neighbour cell staged in shared memory, the
-// pair loop of one i slot, the epilogue), the per-block reduction of u6
-// and the virial, and the launch.  A kernel source adds only what is its
-// own: a neighbour functor that says where the j slots of the cell at
-// offset (dx, dy, dz) lie and which image shift they get, and its
-// extern "C" entry points.  The kernels with a traversal of their own
-// (lj_cells_lanej.cu, lj_cells_n3l.cu, lj_cells_zb.cu, lj_packed.cu) use
-// the pair term, the rounding helpers and the block reduction only.
+// Device code shared by the LJ-12-6 cell kernels: the pair term, the
+// rounding helpers, the neighbour functor of the cell-local layouts
+// (LocalNbr), the per-block reduction of u6 and the virial, and the
+// block skeleton (cell decode, the 27-offset loop with its neighbour cell
+// staged in shared memory, the pair loop of one i slot, the epilogue)
+// with its launch.  A kernel source adds only what is its own: a
+// neighbour functor that says where the j slots of the cell at offset
+// (dx, dy, dz) lie and which image shift they get, and its extern "C"
+// entry points.  The block skeleton carries K4 (lj_cells_row.cu); K1
+// (lj_cells.cu) and K3 (lj_cells_cw.cu) run on the warp skeleton of
+// lj_warp.cuh, which culls and compacts the j slots; the kernels with a
+// traversal of their own (lj_cells_lanej.cu, lj_cells_n3l.cu,
+// lj_cells_zb.cu, lj_packed.cu) use the pair term, the rounding helpers
+// and the block reduction only.
 //
 // Every kernel built on the skeleton evaluates pairs from both sides (no
 // Newton-3rd-law reaction writes, no atomics): the force on the i slot
@@ -23,7 +27,8 @@
 // 32, so the kernels sit far above the memory roof: issue rate and
 // occupancy are what limit them.
 //
-// Design (the first, plain one; see PERF.md for its times):
+// Design of the block skeleton (the first, plain one; see PERF.md for
+// its times, and lj_warp.cuh for what the warp skeleton does instead):
 //   * one block holds cpb = 128/cap cells (one cell for cap >= 128),
 //     one thread per i slot, so a block is 128..cap threads;
 //   * the 27 neighbour cells are visited in turn; each thread stages

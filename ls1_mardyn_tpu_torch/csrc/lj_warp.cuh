@@ -1,0 +1,309 @@
+// Warp-level skeleton of the 1CLJ cell kernels K1 (lj_cells.cu) and K3
+// (lj_cells_cw.cu): one warp owns 32 slots of one i cell, stages the j
+// slots of its 27 neighbour cells itself, keeps only those that can hold
+// a pair inside the cutoff, and walks the kept slots.  The pair term,
+// the rounding helpers, the neighbour functor (ljk::LocalNbr) and the
+// per-block reduction of u6 and the virial are lj_pair.cuh's; K4
+// (lj_cells_row.cu) keeps lj_pair.cuh's block skeleton.
+//
+// What bounded the block skeleton (lj_pair.cuh: cell_forces_kernel) on
+// this card: dead pair lanes.  It ran every i slot against every one of
+// the 27 * cap staged j slots, empty ones and ones no i of the cell can
+// reach, and the LJ body was taken by some lane of nearly every warp
+// iteration, so every lane paid the whole pair.  On K1's main state
+// (grid (56,60,60), cap 32, 20.8 molecules a cell) 42% of the lanes were
+// pairs of two occupied slots and 3.9% pairs inside the cutoff; on K3's
+// (69,69,69), 12.8 a cell, 16% were occupied.  The kernel was bound by
+// instruction throughput on those lanes, behind 54 block barriers a
+// block.
+//
+// Design:
+//   * a warp is one 32-slot chunk of one i cell (cap 64: two warps a
+//     cell); a block is WARPS warps of consecutive chunks, i.e. of
+//     consecutive x cells, so neighbour rows are shared through L1.  No
+//     block barrier until the block reduction at the end: a warp meets
+//     its lanes at __syncwarp only;
+//   * i compaction: the valid i slots of the chunk move to the low lanes
+//     (through the warp's staging buffer).  With n_i <= 16 the warp runs
+//     as two half-warps that hold the same i slots and take alternate
+//     kept j slots; one shuffle adds the halves' force sums, in a fixed
+//     order, so the result stays deterministic.  u6 and the virial need
+//     no shuffle: the block reduction adds every lane;
+//   * box culling while staging: the warp forms the bounding box of its
+//     valid i slots; each lane loads one j slot, adds the image shift
+//     (rounded once, as the plain version does), and keeps it if it is
+//     valid and its box distance boxdist2 < rc^2.  Kept slots go to a
+//     per-warp ring of RING entries, written contiguously after a ballot
+//     and a popc prefix; whenever 32 are waiting the warp walks them;
+//   * exactness of the cull: boxdist2 = norm2(gx, gy, gz) of the
+//     per-axis gaps g = max(lo - x, x - hi, 0), formed with the same
+//     round-to-nearest operations as r^2.  For an i in the box,
+//     lo <= x_i <= hi, so x_i - x_j >= lo - x_j (and <= hi - x_j);
+//     rounding to nearest is monotone and odd, so |fl(x_i - x_j)| >= g,
+//     fl(dx^2) >= fl(g^2), and the two rounded sums keep the order:
+//     fl(boxdist2) <= fl(r^2) for every i of the box.  A culled j
+//     therefore held no pair inside the cutoff: no margin is needed and
+//     no pair is dropped;
+//   * the own-cell pair of a slot with itself is skipped by slot id (the
+//     fourth word of a staged entry), as in the plain version, not by
+//     r^2 = 0;
+//   * r^2 rounded as in the plain PyTorch versions (no FMA contraction),
+//     IEEE division for 1/r^2; every output slot is written (0 where
+//     invalid), since the wrapper allocates the forces with torch.empty.
+//
+// What bounds it now (H100, PERF.md): the walk.  On K1's main state a
+// warp walks 283 j iterations (864 before), on K3's 113; each costs ~14
+// SM cycles, about 40 instructions at the full instruction rate, and the
+// time follows the resident warps: the compiler's 56 registers (f32)
+// beat budgets of 67-86 by 12%.  The walk of a full ring must unroll
+// completely (WAYS a compile-time constant): a runtime stride or
+// `#pragma unroll 1` cost 4-20%.  Testing a ring first and running the
+// pair terms on the hits only (per-lane bit masks) was slower on both
+// states.
+
+#pragma once
+
+#include "lj_pair.cuh"
+
+namespace ljw {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = 4;  // warps a block (8 measured the same)
+constexpr int RING = 64;  // staged j entries a warp: 32 walked + 31 waiting
+
+// A staged slot: r_j + shift, and the slot id in the own cell (-1 in any
+// other neighbour cell).
+template <typename T>
+struct alignas(4 * sizeof(T)) J4 {
+  T x, y, z, w;
+};
+
+template <typename T>
+__device__ __forceinline__ T warp_min(T v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const T u = __shfl_xor_sync(FULL, v, o);
+    v = u < v ? u : v;
+  }
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const T u = __shfl_xor_sync(FULL, v, o);
+    v = u > v ? u : v;
+  }
+  return v;
+}
+
+// distance of x from [lo, hi] along one axis, rounded as r^2's terms
+template <typename T>
+__device__ __forceinline__ T gap(T x, T lo, T hi) {
+  const T a = ljk::sub_rn(lo, x);
+  const T b = ljk::sub_rn(x, hi);
+  return a > T(0) ? a : (b > T(0) ? b : T(0));
+}
+
+// Number of blocks of a launch (rows of the part[., 2] buffer).
+inline int num_blocks(int nx, int ny, int nz, int cap) {
+  const long long warps = (long long)nx * ny * nz * (cap / 32);
+  return (int)((warps + WARPS - 1) / WARPS);
+}
+
+// A force sum of the slot of this lane: with the warp split, the two
+// halves' partial sums added (the same total in both halves), then taken
+// from compacted lane `rank`; 0 for an invalid slot.
+template <typename T>
+__device__ __forceinline__ T to_slot(T v, int ways, int rank, bool valid) {
+  if (ways == 2) v += __shfl_xor_sync(FULL, v, 16);
+  v = __shfl_sync(FULL, v, rank);
+  return valid ? v : T(0);
+}
+
+// The pair of i `me` and a staged j: its terms added to `a` if it lies
+// inside the cutoff and is not the slot with itself.
+template <typename T, bool MACRO, bool VI>
+__device__ __forceinline__ void pair(const J4<T>& me, const J4<T>& j,
+                                     const ljk::LJ<T>& lj, ljk::Acc<T>& a) {
+  const T ddx = me.x - j.x;
+  const T ddy = me.y - j.y;
+  const T ddz = me.z - j.z;
+  const T dr2 = ljk::norm2(ddx, ddy, ddz);
+  if (dr2 < lj.rc2 && j.w != me.w) {
+    T fac, u6;
+    ljk::lj_term(dr2, lj.eps24, lj.sig2, fac, u6);
+    const T px = fac * ddx, py = fac * ddy, pz = fac * ddz;
+    a.fx += px;
+    a.fy += py;
+    a.fz += pz;
+    if (VI) {
+      a.vx += px * ddx;
+      a.vy += py * ddy;
+      a.vz += pz * ddz;
+    }
+    if (MACRO) {
+      a.u6 += u6 + lj.shift6;
+      a.vir += fac * dr2;
+    }
+  }
+}
+
+// One i `me` against the staged entries ring[(tail + k) % RING] for
+// k = h, h + WAYS, ... < n (n <= 32), h the lane's half (0 unsplit).
+// WAYS is a compile-time constant, so the walk of a full ring (n = 32)
+// unrolls completely.
+template <typename T, bool MACRO, bool VI, int WAYS>
+__device__ __forceinline__ void walk(const J4<T>* ring, int tail, int n,
+                                     const J4<T>& me, const ljk::LJ<T>& lj,
+                                     ljk::Acc<T>& a) {
+  const int h = (threadIdx.x & 31) / (32 / WAYS);
+  for (int b = 0; b < 32 / WAYS; ++b) {
+    const int k = b * WAYS + h;
+    if (k >= n) break;
+    pair<T, MACRO, VI>(me, ring[(tail + k) & (RING - 1)], lj, a);
+  }
+}
+
+// walk, split in two halves or not
+template <typename T, bool MACRO, bool VI>
+__device__ __forceinline__ void walk_ways(int ways, const J4<T>* ring, int tail,
+                                          int n, const J4<T>& me,
+                                          const ljk::LJ<T>& lj, ljk::Acc<T>& a) {
+  if (ways == 2)
+    walk<T, MACRO, VI, 2>(ring, tail, n, me, lj, a);
+  else
+    walk<T, MACRO, VI, 1>(ring, tail, n, me, lj, a);
+}
+
+// Forces on every slot of r_i[nz, ny, pi, nx*cap] (planes x, y, z, valid;
+// pi >= 4 is the plane count of the parent tensor) into f[nz, ny, 3 or 6,
+// nx*cap]; with VI planes 3..5 hold 0.5 * sum_j f_a * dr_a.  The j cells
+// come from the neighbour functor (ljk::Stage).
+template <typename T, bool MACRO, bool VI, typename Nbr>
+__global__ void __launch_bounds__(WARPS * 32)
+    warp_cells_kernel(const T* __restrict__ ri, int pi, T* __restrict__ f,
+                      T* __restrict__ part, ljk::Grid gd, Nbr nbr, ljk::LJ<T> lj) {
+  __shared__ J4<T> rings[WARPS][RING];
+  const int lane = threadIdx.x & 31;
+  J4<T>* ring = rings[threadIdx.x >> 5];
+  const unsigned below = (1u << lane) - 1u;
+  const int nx = gd.nx, ny = gd.ny, cap = gd.cap, nch = cap >> 5;
+  const long long W = (long long)nx * cap;
+  const long long gw = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const long long cell = gw / nch;
+  ljk::Acc<T> acc;
+  if (cell < (long long)nx * ny * gd.nz) {  // warp-uniform
+    const int cx = (int)(cell % nx);
+    const long long q = cell / nx;
+    const int cy = (int)(q % ny);
+    const int cz = (int)(q / ny);
+    const int s = (int)(gw - cell * nch) * 32 + lane;
+    const T* p = ri + ((long long)cz * ny + cy) * pi * W + (long long)cx * cap + s;
+    const bool vi = p[3 * W] > T(0.5);
+    const unsigned vmask = __ballot_sync(FULL, vi);
+    const int ni = __popc(vmask);
+    const int rank = __popc(vmask & below);
+    T* o = f + ((long long)cz * ny + cy) * (VI ? 6 : 3) * W + (long long)cx * cap + s;
+    if (ni > 0) {  // warp-uniform
+      const T xi = p[0], yi = p[W], zi = p[2 * W];
+      // the bounding box of the valid i (an invalid lane stands in with
+      // the first valid one)
+      const int first = __ffs((int)vmask) - 1;
+      const T x0 = __shfl_sync(FULL, xi, first);
+      const T y0 = __shfl_sync(FULL, yi, first);
+      const T z0 = __shfl_sync(FULL, zi, first);
+      const T lox = warp_min(vi ? xi : x0), hix = warp_max(vi ? xi : x0);
+      const T loy = warp_min(vi ? yi : y0), hiy = warp_max(vi ? yi : y0);
+      const T loz = warp_min(vi ? zi : z0), hiz = warp_max(vi ? zi : z0);
+      // i compaction: valid slot of rank k -> lane k (and k + 16 when
+      // the warp is split)
+      if (vi) ring[rank] = J4<T>{xi, yi, zi, T(s)};
+      __syncwarp();
+      const int ways = ni <= 16 ? 2 : 1;
+      const int k = ways == 2 ? (lane & 15) : lane;
+      const bool live = k < ni;
+      const J4<T> me = ring[live ? k : 0];
+      __syncwarp();
+
+      int head = 0, cnt = 0;  // ring write position; staged, not walked
+      for (int dz = -1; dz <= 1; ++dz) {
+        for (int dy = -1; dy <= 1; ++dy) {
+          for (int dx = -1; dx <= 1; ++dx) {
+            const ljk::Stage<T> st = nbr(cx, cy, cz, dx, dy, dz);
+            const bool self = (dx == 0) && (dy == 0) && (dz == 0);
+            for (int js = lane; js < cap; js += 32) {
+              const T* pj = st.p + js;
+              bool keep = pj[3 * st.stride] > T(0.5);
+              T x = T(0), y = T(0), z = T(0);
+              if (keep) {
+                x = ljk::add_rn(pj[0], st.shx);
+                y = ljk::add_rn(pj[st.stride], st.shy);
+                z = ljk::add_rn(pj[2 * st.stride], st.shz);
+                keep = ljk::norm2(gap(x, lox, hix), gap(y, loy, hiy),
+                                  gap(z, loz, hiz)) < lj.rc2;
+              }
+              const unsigned km = __ballot_sync(FULL, keep);
+              if (keep)
+                ring[(head + __popc(km & below)) & (RING - 1)] =
+                    J4<T>{x, y, z, self ? T(js) : T(-1)};
+              head += __popc(km);
+              cnt += __popc(km);
+              __syncwarp();
+              if (cnt >= 32) {
+                if (live) walk_ways<T, MACRO, VI>(ways, ring, head - cnt, 32, me, lj, acc);
+                cnt -= 32;
+                __syncwarp();
+              }
+            }
+          }
+        }
+      }
+      if (live) walk_ways<T, MACRO, VI>(ways, ring, head - cnt, cnt, me, lj, acc);
+      o[0] = to_slot(acc.fx, ways, rank, vi);
+      o[W] = to_slot(acc.fy, ways, rank, vi);
+      o[2 * W] = to_slot(acc.fz, ways, rank, vi);
+      if (VI) {
+        o[3 * W] = T(0.5) * to_slot(acc.vx, ways, rank, vi);
+        o[4 * W] = T(0.5) * to_slot(acc.vy, ways, rank, vi);
+        o[5 * W] = T(0.5) * to_slot(acc.vz, ways, rank, vi);
+      }
+    } else {
+      for (int c = 0; c < (VI ? 6 : 3); ++c) o[c * W] = T(0);
+    }
+  }
+  if (MACRO) ljk::block_macro(acc.u6, acc.vir, part);
+}
+
+// Launch on `stream`; returns the cudaError_t of the launch.  HAS_VI
+// says whether the kernel source offers the per-slot virial planes.
+template <typename T, bool HAS_VI, typename Nbr>
+int launch_warp(const void* ri, int pi, void* f, void* part, int nx, int ny,
+                int nz, int cap, Nbr nbr, double eps24, double sig2,
+                double shift6, double rc2, int macro, int vi, void* stream) {
+  const ljk::Grid gd{nx, ny, nz, cap, 0};
+  const ljk::LJ<T> lj{T(eps24), T(sig2), T(shift6), T(rc2)};
+  const unsigned blocks = (unsigned)num_blocks(nx, ny, nz, cap);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+#define LJW_LAUNCH(M, V)                                                \
+  warp_cells_kernel<T, M, V, Nbr><<<blocks, WARPS * 32, 0, st>>>(       \
+      (const T*)ri, pi, (T*)f, (T*)part, gd, nbr, lj)
+  if constexpr (HAS_VI) {
+    if (vi) {
+      if (macro) {
+        LJW_LAUNCH(true, true);
+      } else {
+        LJW_LAUNCH(false, true);
+      }
+      return (int)cudaGetLastError();
+    }
+  }
+  if (macro) {
+    LJW_LAUNCH(true, false);
+  } else {
+    LJW_LAUNCH(false, false);
+  }
+#undef LJW_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ljw

@@ -113,6 +113,23 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def stream_of(lib: ctypes.CDLL, t, what: str):
+    """The stream argument of a launch of `lib` on tensor `t`: PyTorch's
+    current stream on t's card.  A CPU tensor is taken only by a library
+    built for the CPU under tools/cuda_emu.h (which exports
+    cuda_emu_host_build and ignores the stream): None.  Raises for a CPU
+    tensor and a library built by nvcc, whose kernel would be handed
+    host pointers."""
+    if t.device.type == "cuda":
+        import torch
+
+        return torch.cuda.current_stream(t.device).cuda_stream
+    if t.device.type == "cpu" and hasattr(lib, "cuda_emu_host_build"):
+        return None
+    raise ValueError(f"{what}: a {t.device} tensor for a library built for "
+                     "the card")
+
+
 def check(status: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if status != 0:

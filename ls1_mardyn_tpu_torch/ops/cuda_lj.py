@@ -15,6 +15,17 @@ coordinates periodic images are exact integer cell offsets:
 dr = r_i - (r_j + off*cell_len) for the neighbour cell at offset off in
 {-1,0,1}^3.  A wrapper takes the plain version only for a CPU tensor; a
 CUDA tensor launches the kernel (built at first use) or raises.
+
+K1 and K3 run on the warp skeleton of csrc/lj_warp.cuh (a warp owns 32
+slots of an i cell and walks only the j slots of its 27 neighbour cells
+that are valid and within the cutoff of its i slots' bounding box); K4
+keeps the block skeleton of csrc/lj_pair.cuh.  The launch_* functions
+are the launches behind the wrappers, on checked inputs; they raise for
+a CPU tensor unless the library was built for the CPU
+(tools/cuda_emu.py).  inside_pairs counts the ordered pairs inside the
+cutoff that K1 or K3 evaluates (a launch with eps24 = 0 and
+shift6 = 1), exactly, for the kernels' bound and its check against the
+plain version's count.
 """
 
 from __future__ import annotations
@@ -59,7 +70,7 @@ def _cells(r4, nx, cap):
 
 
 def _reference(pos_i, val_i, j_cells, *, cap, eps24, sig2, shift6, rc2,
-               compute_macro, compute_vi=False):
+               compute_macro, compute_vi=False, count=False):
     """The pair sum all three plain versions share.  pos_i, val_i: the i
     cells [nz,ny,nx,cap,(3)].  j_cells(z0, z1, off) returns, for the i
     rows z0:z1 and the neighbour offset off = (dz, dy, dx), the
@@ -67,7 +78,8 @@ def _reference(pos_i, val_i, j_cells, *, cap, eps24, sig2, shift6, rc2,
     rounded once, as the CUDA kernels stage them) and their validity.
     All cap x cap slot pairs of every cell pair are evaluated from both
     sides; u6 and the virial are halved per pair.
-    Returns (f [nz,ny,nx,cap,3], vi or None, u6, vir)."""
+    Returns (f [nz,ny,nx,cap,3], vi or None, u6, vir), or with `count`
+    the number of ordered pairs inside the cutoff (an int)."""
     nz, ny, nx = pos_i.shape[:3]
     dtype, dev = pos_i.dtype, pos_i.device
     eye = torch.eye(cap, dtype=torch.bool, device=dev)
@@ -76,6 +88,7 @@ def _reference(pos_i, val_i, j_cells, *, cap, eps24, sig2, shift6, rc2,
     u6 = torch.zeros((), dtype=dtype, device=dev)
     vir = torch.zeros((), dtype=dtype, device=dev)
     zc = max(1, min(nz, _REF_CHUNK // (ny * nx * cap * cap)))
+    n_inside = 0
     for z0 in range(0, nz, zc):
         z1 = min(nz, z0 + zc)
         pi, vi = pos_i[z0:z1], val_i[z0:z1]
@@ -90,6 +103,9 @@ def _reference(pos_i, val_i, j_cells, *, cap, eps24, sig2, shift6, rc2,
             m = vi[..., :, None] & vj[..., None, :] & (dr2 < rc2)
             if off == (0, 0, 0):
                 m = m & ~eye
+            if count:
+                n_inside += int(m.sum())
+                continue
             # the pair function runs on the pairs inside the cutoff only
             idx = m.nonzero(as_tuple=True)
             drm = dr[idx]
@@ -103,6 +119,8 @@ def _reference(pos_i, val_i, j_cells, *, cap, eps24, sig2, shift6, rc2,
         f[z0:z1] = fi
         if compute_vi:
             vip[z0:z1] = 0.5 * vii
+    if count:
+        return n_inside
     return f, vip, 0.5 * u6, 0.5 * vir
 
 
@@ -184,8 +202,9 @@ _ARGTYPES = {
 }
 
 
-def _lib(name):
-    lib = _build.load(name)
+def type_lib(lib, name):
+    """Set the argument and result types of a loaded csrc/<name>.cu
+    library's entry points (once); returns it."""
     if not getattr(lib, "_typed", False):
         for suffix in ("_f32", "_f64"):
             fn = getattr(lib, name + suffix)
@@ -198,11 +217,17 @@ def _lib(name):
     return lib
 
 
-def _launch(name, r4, out_planes, dims, cap, args, compute_macro, zero=False):
+def _lib(name):
+    return type_lib(_build.load(name), name)
+
+
+def _launch(name, r4, out_planes, dims, cap, args, compute_macro, zero=False,
+            parts=False):
     """Allocate outputs (zeroed with `zero`, for kernels that add into
     them), launch csrc/<name>.cu on PyTorch's current stream, check the
-    status; returns (f, u6, vir).  `args(f, part)` gives the entry
-    point's arguments before the stream."""
+    status; returns (f, u6, vir), or (f, part) with `parts` (the
+    per-block sums part[block] = (u6, vir)).  `args(f, part)` gives the
+    entry point's arguments before the stream."""
     nx, ny, nz = dims
     lib = _lib(name)
     f = (torch.zeros if zero else torch.empty)(
@@ -210,8 +235,9 @@ def _launch(name, r4, out_planes, dims, cap, args, compute_macro, zero=False):
     nb = getattr(lib, name + "_num_blocks")(nx, ny, nz, cap)
     part = torch.empty((nb, 2), dtype=r4.dtype, device=r4.device)
     fn = getattr(lib, name + ("_f32" if r4.dtype == torch.float32 else "_f64"))
-    stream = torch.cuda.current_stream(r4.device).cuda_stream
-    _build.check(fn(*args(f, part), stream), name)
+    _build.check(fn(*args(f, part), _build.stream_of(lib, r4, name)), name)
+    if parts:
+        return f, part
     if compute_macro:
         u6, vir = part.sum(0).unbind()
     else:
@@ -238,19 +264,27 @@ def lj_cell_forces(
         return lj_cell_forces_reference(r4, **kw)
     if r4.device.type != "cuda":
         raise ValueError(f"lj_cell_forces: device {r4.device}")
-    P = _planes(r4, nx * cap)
-    out = _launch(
-        "lj_cells", r4, 3, dims, cap,
-        lambda f, part: (
-            r4.data_ptr(), f.data_ptr(), part.data_ptr(), nx, ny, nz, cap, P,
-            *(float(c) for c in cell_len), float(eps24), float(sig2),
-            float(shift6), float(rc2), int(bool(compute_macro))),
-        compute_macro)
+    out = launch_lj_cells(r4, **kw)
     lj_cell_forces.launches += 1
     return out
 
 
 lj_cell_forces.launches = 0
+
+
+def launch_lj_cells(r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2,
+                    compute_macro=True, parts=False):
+    """The launch of csrc/lj_cells.cu behind lj_cell_forces, on checked
+    inputs: (f, u6, vir), or (f, part) with `parts`."""
+    nx, ny, nz = dims
+    P = _planes(r4, nx * cap)
+    return _launch(
+        "lj_cells", r4, 3, dims, cap,
+        lambda f, part: (
+            r4.data_ptr(), f.data_ptr(), part.data_ptr(), nx, ny, nz, cap, P,
+            *(float(c) for c in cell_len), float(eps24), float(sig2),
+            float(shift6), float(rc2), int(bool(compute_macro))),
+        compute_macro, parts=parts)
 
 
 # -- K3: cell-window kernel ---------------------------------------------------
@@ -313,8 +347,23 @@ def lj_cell_forces_cw(
         return lj_cell_forces_cw_reference(r_i, r_j, **kw)
     if r_i.device.type != "cuda":
         raise ValueError(f"{what}: device {r_i.device}")
+    out = launch_lj_cells_cw(r_i, r_j, **kw)
+    lj_cell_forces_cw.launches += 1
+    return out
+
+
+lj_cell_forces_cw.launches = 0
+
+
+def launch_lj_cells_cw(r_i, r_j=None, *, dims, cap, cell_len, eps24, sig2,
+                       shift6, rc2, z_halo=False, compute_macro=True,
+                       compute_vi=False, parts=False):
+    """The launch of csrc/lj_cells_cw.cu behind lj_cell_forces_cw, on
+    checked inputs: (f, u6, vir), or (f, part) with `parts`."""
+    nx, ny, nz = dims
+    src = r_i if r_j is None else r_j
     Pi, Pj = _planes(r_i, nx * cap), _planes(src, nx * cap)
-    out = _launch(
+    return _launch(
         "lj_cells_cw", r_i, 6 if compute_vi else 3, dims, cap,
         lambda f, part: (
             r_i.data_ptr(), src.data_ptr(), f.data_ptr(), part.data_ptr(),
@@ -322,12 +371,46 @@ def lj_cell_forces_cw(
             *(float(c) for c in cell_len), float(eps24), float(sig2),
             float(shift6), float(rc2), int(bool(compute_macro)),
             int(bool(compute_vi))),
-        compute_macro)
-    lj_cell_forces_cw.launches += 1
-    return out
+        compute_macro, parts=parts)
 
 
-lj_cell_forces_cw.launches = 0
+def pairs_from_part(part):
+    """Ordered pairs inside the cutoff counted by a launch with eps24 = 0
+    and shift6 = 1: a block's halved u6 is half its count (exact in f32
+    below 2^24 pairs a block), and the blocks are summed in f64."""
+    return int(round(2.0 * float(part[:, 0].sum(dtype=torch.float64))))
+
+
+def inside_pairs_reference(r_i, r_j=None, *, dims, cap, cell_len, rc2,
+                           z_halo=False):
+    """Ordered pairs inside the cutoff that the plain version of K3 (K1
+    with r_j None) evaluates on these inputs, counted from its masks."""
+    nx, ny, nz = dims
+    pos_i, val_i = _cells(r_i, nx, cap)
+    pos_j, val_j = (pos_i, val_i) if r_j is None else _cells(r_j, nx, cap)
+    return _reference(
+        pos_i, val_i, _local_j_cells(pos_j, val_j, cell_len, nz, z_halo),
+        cap=cap, eps24=0.0, sig2=0.0, shift6=0.0, rc2=rc2,
+        compute_macro=False, count=True)
+
+
+def inside_pairs(r_i, r_j=None, *, dims, cap, cell_len, rc2, z_halo=False,
+                 kernel="K3"):
+    """Ordered pairs inside the cutoff that K3 (or K1, kernel="K1", with
+    r_j None) evaluates on these inputs: the launch with eps24 = 0 and
+    shift6 = 1, counted by pairs_from_part.  A CPU tensor counts the
+    plain version's pairs (inside_pairs_reference)."""
+    kw = dict(dims=dims, cap=cap, cell_len=cell_len, rc2=rc2)
+    if r_i.device.type == "cpu":
+        return inside_pairs_reference(r_i, r_j, z_halo=z_halo, **kw)
+    kw.update(eps24=0.0, sig2=0.0, shift6=1.0, parts=True)
+    if kernel == "K1":
+        if r_j is not None or z_halo:
+            raise ValueError("inside_pairs: K1 reads its own j cells")
+        _, part = launch_lj_cells(r_i, **kw)
+    else:
+        _, part = launch_lj_cells_cw(r_i, r_j, z_halo=z_halo, **kw)
+    return pairs_from_part(part)
 
 
 # -- K4: row kernel on an explicit j view ---------------------------------------
@@ -425,17 +508,26 @@ def lj_cell_forces_row(
         raise ValueError(f"{what}: device {r_i.device}")
     if not (r_i.is_contiguous() and r_j.is_contiguous()):
         raise ValueError(f"{what}: r_i and r_j must be contiguous")
+    out = launch_lj_cells_row(r_i, r_j, **kw)
+    lj_cell_forces_row.launches += 1
+    return out
+
+
+lj_cell_forces_row.launches = 0
+
+
+def launch_lj_cells_row(r_i, r_j, *, dims, cap, box, eps24, sig2, shift6, rc2,
+                        hx=1, local_coords=False, z_halo=False, y_halo=False,
+                        compute_macro=True, parts=False):
+    """The launch of csrc/lj_cells_row.cu behind lj_cell_forces_row, on
+    checked inputs: (f, u6, vir), or (f, part) with `parts`."""
+    nx, ny, nz = dims
     units = _row_units(dims, box, local_coords)
-    out = _launch(
+    return _launch(
         "lj_cells_row", r_i, 3, dims, cap,
         lambda f, part: (
             r_i.data_ptr(), r_j.data_ptr(), f.data_ptr(), part.data_ptr(),
             nx, ny, nz, cap, hx, int(bool(local_coords)), int(bool(z_halo)),
             int(bool(y_halo)), *units, float(eps24), float(sig2),
             float(shift6), float(rc2), int(bool(compute_macro))),
-        compute_macro)
-    lj_cell_forces_row.launches += 1
-    return out
-
-
-lj_cell_forces_row.launches = 0
+        compute_macro, parts=parts)

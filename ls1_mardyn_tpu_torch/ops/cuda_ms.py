@@ -426,10 +426,7 @@ def launch(name, r_i, out_shape, nb_args, args, *, meta, box, rc2, rc2_lj,
     nb = getattr(lib, name + "_num_blocks")(*nb_args)
     part = torch.empty((nb, 3), dtype=dtype, device=dev)
     fn = getattr(lib, name + ("_f32" if dtype == torch.float32 else "_f64"))
-    # a CPU tensor reaches here only with a library built for the CPU
-    # (tools/cuda_emu.py), which takes no stream
-    stream = torch.cuda.current_stream(dev).cuda_stream \
-        if dev.type == "cuda" else None
+    stream = _build.stream_of(lib, r_i, name)
     _build.check(fn(*args(out, part, tab.data_ptr(), terms.data_ptr()),
                     float(box[1]), float(box[2]), float(rc2), float(rc2_lj),
                     float(screen_alpha), int(meta.K), int(tab.numel()),

@@ -1,0 +1,180 @@
+"""The 1CLJ cell kernels' device code on the CPU: csrc/lj_cells.cu (K1)
+and csrc/lj_cells_cw.cu (K3) on their warp skeleton csrc/lj_warp.cuh,
+and csrc/lj_cells_row.cu (K4, the block skeleton of csrc/lj_pair.cuh)
+as a control, compiled by g++ under the CUDA emulation shim
+tools/cuda_emu.h (tools/cuda_emu.py) and run through the port's own
+launch code (ops/cuda_lj.launch_lj_cells, launch_lj_cells_cw,
+launch_lj_cells_row) on CPU tensors, against the plain versions
+lj_cell_forces_reference, lj_cell_forces_cw_reference and
+lj_cell_forces_row_reference.
+
+It checks what only the kernels do: the i compaction and the two- and
+four-group split of a warp (cells of 0, 1 and <= 16 molecules), the
+full-warp path (32 of 32), a cell of cap 64 as two warps, the box
+culling of j slots (pairs within an ulp of rc), the ring of staged j
+slots, Vi, explicit z halo rows, ny = 2 with nz = 1 (both periodic
+images count) and K1 reading the first 4 planes of an 8-plane tensor in
+place.  Tolerance: 1e-12 of max|F| and relative on u6 and the virial in
+f64, 1e-5 in f32.  Every case also holds the number of ordered pairs
+inside the cutoff that the kernel evaluates (a launch with eps24 = 0 and
+shift6 = 1, ops/cuda_lj.pairs_from_part) to the plain version's count
+(inside_pairs_reference), exactly: a j slot culled wrongly would lose
+its pairs there.  Scenes: chip_smoke.lj_scene, cell edge 2.6, rc 2.5.
+"""
+
+import ctypes
+import importlib.util
+import shutil
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from ls1_mardyn_tpu_torch.ops import _build, cuda_lj  # noqa: E402
+
+torch.set_num_threads(1)
+
+CL = 2.6
+LJ = dict(eps24=24.0, sig2=1.0, shift6=0.1, rc2=2.5 ** 2)
+LIBS = ("lj_cells", "lj_cells_cw", "lj_cells_row")
+
+
+@pytest.fixture(scope="module")
+def emu_libs(tmp_path_factory):
+    """csrc/lj_cells*.cu built for the CPU (skips without g++)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is absent: the kernels cannot be built for the CPU")
+    spec = importlib.util.spec_from_file_location(
+        "cuda_emu", ROOT / "tools" / "cuda_emu.py")
+    emu = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(emu)
+    paths = emu.build(LIBS, tmp_path_factory.mktemp("cuda_emu"))
+    return {n: cuda_lj.type_lib(ctypes.CDLL(str(p)), n) for n, p in paths.items()}
+
+
+@pytest.fixture
+def on_emu(emu_libs, monkeypatch):
+    """The port's launch code, loading the CPU builds."""
+    monkeypatch.setattr(cuda_lj, "_lib", emu_libs.__getitem__)
+
+
+def sparse_counts(shape, hi, seed):
+    """Molecules a cell: 0 or 1 in a third of the cells each, else up to
+    hi."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(2, hi + 1, size=shape)
+    pick = rng.integers(0, 3, size=shape)
+    return np.where(pick == 0, 0, np.where(pick == 1, 1, c))
+
+
+def assert_close(got, want, lim):
+    """Forces (and Vi) within lim of max|F|; u6 and virial relative."""
+    f, u6, vir = got
+    scale = float(want[0][:, :, :3].abs().max())
+    assert scale > 0
+    err = float((f - want[0]).abs().max()) / scale
+    assert err <= lim, err
+    for a, b in ((u6, want[1]), (vir, want[2])):
+        assert abs(float(a) - float(b)) <= lim * abs(float(b)), (float(a), float(b))
+
+
+def check_kernel(launch, plain, args, kw, lim, count_kw=None):
+    """The kernel with and without u6/virial against its plain version,
+    and its in-cutoff pair count against the plain version's."""
+    want = plain(*args, **kw)
+    assert_close(launch(*args, **kw), want, lim)
+    f, _, _ = launch(*args, **dict(kw, compute_macro=False))
+    torch.testing.assert_close(f, want[0], rtol=0,
+                               atol=lim * float(want[0][:, :, :3].abs().max()))
+    _, part = launch(*args, **dict(kw, eps24=0.0, sig2=0.0, shift6=1.0),
+                     parts=True)
+    ref = cuda_lj.inside_pairs_reference(*args[:1], **count_kw)
+    assert cuda_lj.pairs_from_part(part) == ref > 0
+
+
+SCENES = {
+    # name: (dims, cap, counts(shape) , near_rc pairs)
+    "sparse32": ((5, 4, 3), 32, lambda s: sparse_counts(s, 16, 1), 0),
+    "sparse64": ((4, 3, 3), 64, lambda s: sparse_counts(s, 40, 2), 0),
+    "full32": ((3, 3, 3), 32, lambda s: np.full(s, 32), 0),
+    "near_rc": ((4, 4, 3), 32, lambda s: sparse_counts(s, 3, 3), 80),
+}
+
+
+def scene(name, dtype=torch.float64, planes=4):
+    dims, cap, counts, near = SCENES[name]
+    r = chip_smoke.lj_scene(dims, cap, CL, counts(dims[::-1]), seed=7,
+                            near_rc=near, planes=planes, dtype=dtype)
+    return r, dims, cap
+
+
+@pytest.mark.parametrize("case", ["sparse32", "sparse64", "full32", "near_rc",
+                                  "f32", "planes8"])
+def test_k1_device_code_matches_plain(on_emu, case):
+    """K1 against its plain version: sparse cells (the split paths), cap
+    64, full cells, pairs within an ulp of rc, f32, and the first 4
+    planes of an 8-plane tensor read in place."""
+    name = case if case in SCENES else "sparse32"
+    dtype = torch.float32 if case == "f32" else torch.float64
+    r, dims, cap = scene(name, dtype, planes=8 if case == "planes8" else 4)
+    r4 = r[:, :, :4, :]
+    assert r4.is_contiguous() == (case != "planes8")
+    kw = dict(dims=dims, cap=cap, cell_len=(CL,) * 3, **LJ)
+    check_kernel(cuda_lj.launch_lj_cells, cuda_lj.lj_cell_forces_reference,
+                 (r4,), kw, 1e-5 if case == "f32" else 1e-12,
+                 dict(dims=dims, cap=cap, cell_len=(CL,) * 3, rc2=LJ["rc2"]))
+
+
+@pytest.mark.parametrize("case", ["sparse32", "sparse64", "full32", "near_rc",
+                                  "vi", "z_halo", "ny2"])
+def test_k3_device_code_matches_plain(on_emu, case):
+    """K3 against its plain version: the K1 scenes, Vi, the inner z rows
+    against the whole scene as explicit halo rows, and (5, 2, 1)."""
+    name = case if case in SCENES else "sparse32"
+    r, dims, cap = scene(name)
+    r_i, r_j, extra = r, None, {}
+    if case == "vi":
+        extra = dict(compute_vi=True)
+    elif case == "z_halo":
+        r_i, r_j = r[1:-1].contiguous(), r
+        dims = (dims[0], dims[1], dims[2] - 2)
+        extra = dict(z_halo=True)
+    elif case == "ny2":
+        dims = (5, 2, 1)
+        r_i = r[:1, :2].contiguous()
+    kw = dict(dims=dims, cap=cap, cell_len=(CL,) * 3, **LJ, **extra)
+    count_kw = dict(dims=dims, cap=cap, cell_len=(CL,) * 3, rc2=LJ["rc2"],
+                    r_j=r_j, z_halo=bool(extra.get("z_halo")))
+    check_kernel(cuda_lj.launch_lj_cells_cw, cuda_lj.lj_cell_forces_cw_reference,
+                 (r_i, r_j), kw, 1e-12, count_kw)
+
+
+@pytest.mark.parametrize("case", ["sparse32", "full32"])
+def test_k4_block_skeleton_control(on_emu, case):
+    """K4, still on lj_pair.cuh's block skeleton, in cell-local mode on
+    the same scenes through a one-cell periodic x halo."""
+    r, dims, cap = scene(case)
+    nx = dims[0]
+    r_j = torch.cat([r[..., (nx - 1) * cap:], r, r[..., :cap]], -1).contiguous()
+    kw = dict(dims=dims, cap=cap, box=tuple(CL * d for d in dims),
+              local_coords=True, **LJ)
+    check_kernel(cuda_lj.launch_lj_cells_row, cuda_lj.lj_cell_forces_row_reference,
+                 (r, r_j), kw, 1e-12,
+                 dict(dims=dims, cap=cap, cell_len=(CL,) * 3, rc2=LJ["rc2"]))
+
+
+def test_cpu_tensor_only_for_a_library_built_for_the_cpu(emu_libs):
+    """The launch code hands a CPU tensor only to a library built under
+    the shim (no stream); a library built for the card raises there
+    instead of taking host pointers."""
+    t = torch.zeros(4, dtype=torch.float64)
+    assert _build.stream_of(emu_libs["lj_cells"], t, "lj_cells") is None
+    with pytest.raises(ValueError, match="built for the card"):
+        _build.stream_of(types.SimpleNamespace(), t, "lj_cells")

@@ -63,6 +63,11 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 
+// Marks a library built under this shim: the port's launch code hands
+// only such a library CPU tensors (ls1_mardyn_tpu_torch/ops/_build.py:
+// stream_of).  One source is one library, so one definition.
+extern "C" int cuda_emu_host_build(void) { return 1; }
+
 namespace emu {
 
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block can use
@@ -313,6 +318,8 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
 inline int __float2int_rn(float a) { return (int)std::nearbyint(a); }

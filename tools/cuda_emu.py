@@ -27,7 +27,8 @@ SHIM = Path(__file__).resolve().parent / "cuda_emu.h"
 GXX_FLAGS = ["-std=c++20", "-O1", "-ffp-contract=off", "-pthread", "-shared",
              "-fPIC", "-x", "c++"]
 
-_LAUNCH = re.compile(r"(\w+)\s*<<<(.+?)>>>\s*\(", re.S)
+# a launch, of a kernel or of a kernel template's specialization
+_LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.+?)>>>\s*\(", re.S)
 _DYN_SMEM = re.compile(
     r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?([\w ]+?)\s+(\w+)\[\]\s*;")
 

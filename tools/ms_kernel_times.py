@@ -1,12 +1,11 @@
 """K5 and K6 of several kernel source trees side by side on one NVIDIA GPU.
 
-    python3 tools/ms_kernel_times.py [--csrc TAG=DIR ...] [--reps 5]
+    python3 tools/ms_kernel_times.py [--variant TAG=DIR[:FLAGS] ...] [--reps 5] [--ux]
 
-Builds csrc/ms_packed.cu (K5) and csrc/ms_dense.cu (K6) of each given
-source tree (default: the checkout's own, tag "tree"; DIR holds a copy of
-ls1_mardyn_tpu_torch/csrc, e.g. a parent commit's from `git archive`)
-with the port's nvcc flags into build/kernels/variants/<tag>/, one nvcc
-per source, all started together, and prints each library's ptxas
+Builds csrc/ms_packed.cu (K5) and csrc/ms_dense.cu (K6) of each variant
+(tools/kernel_variants.py: DIR a copy of ls1_mardyn_tpu_torch/csrc, e.g.
+a parent commit's from `git archive`, and optional nvcc flags; default:
+the checkout's own csrc, tag "tree") and prints each library's ptxas
 report (registers, spills, shared memory).  Each variant is then held
 against the plain versions on chip_smoke.py's K5 and K6 scenes (f32 and
 f64, every case), and every variant's K5 and K6 are timed with CUDA
@@ -16,15 +15,15 @@ force_mode="auto" builds, K6 on the dense rows of "ms_dense"), in turns
 A B ... B A, so that the variants compare within one call on one card,
 and held against the plain versions there (each output's error
 relative to its max, as chip_smoke.py reports it).
-A variant is launched through the port's wrappers: its library takes
-the place of the checkout's in ops/_build.py's cache.
+With --ux, uX (the quadrupole energy sum, which nearly cancels on this
+start state) of each variant's K5 and K6 and of the f32 plain versions is
+held against the f64 plain version on the same state (the f32 inputs
+cast to f64), which says which side of the f32 comparison is off.
 """
 
 import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
 
@@ -34,44 +33,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+import kernel_variants as kv  # noqa: E402
 
 LIBS = ("ms_packed", "ms_dense")
-
-
-def build_variants(variants):
-    """{tag: {lib: CDLL}} built from each variant's sources; prints the
-    ptxas reports."""
-    from ls1_mardyn_tpu_torch.ops import _build
-
-    procs = {}
-    for tag, src in variants.items():
-        out = _build.BUILD_DIR / "variants" / tag
-        out.mkdir(parents=True, exist_ok=True)
-        for lib in LIBS:
-            so = out / f"lib{lib}.so"
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                   str(Path(src) / f"{lib}.cu")]
-            procs[tag, lib] = (so, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for (tag, lib), (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {tag}/{lib}.cu:\n{log[-4000:]}")
-        so.with_suffix(".log").write_text(log)
-        libs.setdefault(tag, {})[lib] = ctypes.CDLL(str(so))
-        regs = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-                if "Used" in ln or "spill" in ln]
-        cs.say("ptxas", variant=tag, lib=lib, report=json.dumps(regs))
-    return libs
-
-
-def use(libs):
-    """Make the port's wrappers launch these libraries."""
-    from ls1_mardyn_tpu_torch.ops import _build
-
-    for lib, cdll in libs.items():
-        _build._LOADED[lib] = cdll
 
 
 def full_width_inputs():
@@ -104,19 +68,21 @@ def full_width_inputs():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--csrc", action="append", default=[],
-                    help="TAG=DIR of a copy of ls1_mardyn_tpu_torch/csrc")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="TAG=DIR[:FLAGS] (tools/kernel_variants.py)")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--ux", action="store_true",
+                    help="uX of K5, K6 and the f32 plain versions against "
+                         "the f64 plain version")
     args = ap.parse_args()
     smi = cs.phase_device()
     import ls1_mardyn_tpu_torch  # noqa: F401  (precision flags)
     from ls1_mardyn_tpu_torch.ops import cuda_ms, cuda_ms_packed
 
-    variants = dict(v.split("=", 1) for v in args.csrc) or {
-        "tree": str(ROOT / "ls1_mardyn_tpu_torch" / "csrc")}
-    libs = build_variants(variants)
+    libs = kv.build(kv.parse(args.variant, ROOT / "ls1_mardyn_tpu_torch" / "csrc"),
+                    LIBS)
     for tag, lib in libs.items():
-        use(lib)
+        kv.use(lib)
         cs.say("check", variant=tag)
         cs.phase_k5("cuda")
         cs.phase_k6("cuda")
@@ -126,7 +92,7 @@ def main():
     times = {tag: {"K5": [], "K6": []} for tag in libs}
     order = list(libs) + list(libs)[::-1]
     for tag in order:
-        use(libs[tag])
+        kv.use(libs[tag])
         for key, fn in kernels.items():
             a, kw = calls[key]
             times[tag][key].append(cs.cuda_ms(lambda: fn(*a, **kw), args.reps))
@@ -134,13 +100,27 @@ def main():
              "K6": cuda_ms.multisite_cell_forces_reference}
     ref = {key: fn(*calls[key][0], **calls[key][1]) for key, fn in plain.items()}
     for tag in libs:
-        use(libs[tag])
+        kv.use(libs[tag])
         for key, fn in kernels.items():
             a, kw = calls[key]
             errs = cs.ms_rel_errors(fn(*a, **kw), ref[key])
             cs.say("times", variant=tag, kernel=key,
                    ms=json.dumps([round(t, 3) for t in times[tag][key]]),
                    rel_to_plain=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
+                   gpu=repr(smi))
+    if args.ux:
+        for key, fn in plain.items():
+            a, kw = calls[key]
+            a64 = tuple(x.double() if x.is_floating_point() else x for x in a)
+            ux64 = float(fn(*a64, **kw)[2])
+            dev = {"plain_f32": float(ref[key][2])}
+            for tag in libs:
+                kv.use(libs[tag])
+                dev[tag] = float(kernels[key](*a, **kw)[2])
+            cs.say("ux", kernel=key, ux_plain_f64=f"{ux64:.9e}",
+                   ux=json.dumps({k: f"{v:.9e}" for k, v in dev.items()}),
+                   rel_to_plain_f64=json.dumps(
+                       {k: f"{abs(v - ux64) / abs(ux64):.3e}" for k, v in dev.items()}),
                    gpu=repr(smi))
 
 
