@@ -34,9 +34,12 @@ non-zero and never prints the result line):
            cap 32 and 64, f32 and f64 (limits as K1): plain, with Vi,
            with explicit z halo rows, and at ny = 2; and on K1's sparse,
            full and near-rc scenes; in-cutoff counts as K1
-  K4       row forces vs plain on the same cells: cell-local and
-           absolute coordinates, z and y halo rows, nx = 2; absolute f32
-           against the f64 result (<= 5e-3, see phase_k4)
+  K4       row forces vs plain on the same cells in every mode of
+           row_views (cell-local, absolute, z and y halo rows, two x
+           halo cells, nx = 2), on K1's sparse, full and near-rc scenes,
+           and on the near-rc scene in absolute coordinates at 160 sigma
+           (f32 ulp 1.5e-5); in-cutoff counts as K1; absolute f32 against
+           the f64 result (<= 5e-3, see phase_k4)
   K5       packed multi-site forces vs plain (F, M, Vi relative to their
            max, u6/uX/myRF relative; f32 <= 1e-5, f64 <= 1e-12): a
            two-component mixture with all seven bodies, a screened
@@ -50,8 +53,11 @@ non-zero and never prints the result line):
   K8       Newton-3rd-law forces vs plain on the cut RMM state read in
            place and on 3x3x3 cells (the smallest grid it takes); against
            K1 reported
-  K9       z-banded forces vs plain on the cut RMM state's 8-plane
-           tensor (sentinel fill), plain and gram
+  K9       K1's function (the TPU's z-banded kernel) vs plain, direct
+           and Gram r^2, on the cut RMM state's 8-plane tensor read in
+           place (sentinel fill) and on K1's sparse, full and near-rc
+           scenes, with in-cutoff counts as K1 (by the Gram r^2 for
+           gram); cap 1024 agrees and cap 1056 raises
   K10      packed-pencil forces vs plain on the cut state packed into
            pencils, with wrap groups at both x ends
   small    the RMM driver on the card vs on the CPU (plain versions),
@@ -81,11 +87,12 @@ non-zero and never prints the result line):
            script held before
   times    K1..K10 against their plain versions at the shapes their
            paths gave them (CUDA events), and each kernel's bound (its
-           in-cutoff count checked once against the plain version's); K1
-           and K3 also report what their warps walk (j slots staged, the
-           share culled, j iterations; lj_warp_walk) and their ptxas
-           registers and spills; K3 and K4 also against plain on K1's
-           grid (56,60,60), K7-K10 on K1's state beside K1; the multi-site plain versions on a 2-row z
+           in-cutoff count checked once against the plain version's); K1,
+           K3, K4 and K9 (zb and gram) also report what their warps walk
+           (j slots staged, the share culled, j iterations;
+           lj_warp_walk) and their ptxas registers and spills; K3 and K4
+           also against plain on K1's grid (56,60,60), K7-K10 on K1's
+           state beside K1; the multi-site plain versions on a 2-row z
            slab, and at full width when that extrapolates to under 60 s;
            K5 and K6 also report the candidate tests their warp windows
            walk (and PR 4's block windows), the ordered pairs inside the
@@ -363,15 +370,15 @@ def check_scenes(cap, dtype, device):
     return {k: v.to(device) for k, v in _SCENES[key].items()}
 
 
-def check_counts(what, r_i, r_j=None, *, kernel, dims, cap, cell_len, rc2,
-                 z_halo=False):
+def check_counts(what, r_i, r_j=None, *, kernel, **kw):
     """The ordered pairs inside the cutoff that the kernel evaluates
-    against the plain version's count, exactly; returns the count."""
+    against the plain version's count, exactly; returns the count.  kw:
+    ops/cuda_lj.inside_pairs's (dims, cap, rc2, and cell_len or K4's
+    box and options)."""
     from ls1_mardyn_tpu_torch.ops.cuda_lj import inside_pairs, inside_pairs_reference
 
-    kw = dict(dims=dims, cap=cap, cell_len=cell_len, rc2=rc2, z_halo=z_halo)
     got = inside_pairs(r_i, r_j, kernel=kernel, **kw)
-    want = inside_pairs_reference(r_i, r_j, **kw)
+    want = inside_pairs_reference(r_i, r_j, kernel=kernel, **kw)
     check(got == want, f"{what}: {got} ordered pairs inside the cutoff, "
                        f"the plain version {want}")
     return got
@@ -448,28 +455,86 @@ def sub_block(r_i, cap, nx, ny, nz):
     return r_i[:nz, :ny, :, : nx * cap].contiguous()
 
 
-def x_halo(a, nx, cap, shift=0.0):
-    """One periodic halo cell per side in x, shifted by -+shift where
+def x_halo(a, nx, cap, shift=0.0, hx=1):
+    """hx periodic halo cells per side in x, shifted by -+shift where
     valid (absolute coordinates)."""
-    lo = a[..., (nx - 1) * cap:].clone()
-    hi = a[..., :cap].clone()
+    lo = a[..., (nx - hx) * cap:].clone()
+    hi = a[..., :hx * cap].clone()
     lo[:, :, 0] -= shift * lo[:, :, 3]
     hi[:, :, 0] += shift * hi[:, :, 3]
     return torch.cat([lo, a, hi], dim=-1).contiguous()
 
 
-def absolute(a, cap, cell_len):
-    """Cell-local planes -> absolute coordinates (valid slots only)."""
+def absolute(a, cap, cell_len, origin=0.0):
+    """Cell-local planes -> absolute coordinates of a box whose corner
+    sits at (origin,) * 3 (valid slots only)."""
     nz, ny, _, W = a.shape
     dt, dev = a.dtype, a.device
     out = a.clone()
     w = a[:, :, 3]
-    out[:, :, 0] += (torch.arange(W, device=dev) // cap).to(dt) * cell_len[0] * w
+    out[:, :, 0] += ((torch.arange(W, device=dev) // cap).to(dt) * cell_len[0]
+                     + origin) * w
     out[:, :, 1] += (torch.arange(ny, device=dev).to(dt)
-                     * cell_len[1])[None, :, None] * w
+                     * cell_len[1] + origin)[None, :, None] * w
     out[:, :, 2] += (torch.arange(nz, device=dev).to(dt)
-                     * cell_len[2])[:, None, None] * w
+                     * cell_len[2] + origin)[:, None, None] * w
     return out
+
+
+# K4's modes (row_views)
+ROW_MODES = ("local", "absolute", "yz_halo", "hx2", "nx2")
+
+
+def row_views(r_i, dims, cap, cell_len, mode, origin=0.0):
+    """K4's inputs in one mode, from the cell-local planes r_i [nz, ny, 4,
+    nx*cap] of the periodic grid `dims`: (r_i, r_j, dims, box, options).
+    "local": a periodic x halo of one cell; "hx2": of two; "nx2": the
+    first 2 x 3 x 3 cells as a grid of their own; "absolute": absolute
+    coordinates (box corner at `origin`), the x halo shifted by -+Lx;
+    "yz_halo": the same with explicit y and z halo rows, the periodic
+    images put where an exchange would put them."""
+    nx, ny, nz = dims
+    box = tuple(c * n for c, n in zip(cell_len, dims))
+    if mode == "local":
+        return r_i, x_halo(r_i, nx, cap), dims, box, dict(local_coords=True)
+    if mode == "hx2":
+        return (r_i, x_halo(r_i, nx, cap, hx=2), dims, box,
+                dict(local_coords=True, hx=2))
+    if mode == "nx2":
+        r2 = sub_block(r_i, cap, 2, 3, 3)
+        box2 = (2 * cell_len[0], 3 * cell_len[1], 3 * cell_len[2])
+        return r2, x_halo(r2, 2, cap), (2, 3, 3), box2, dict(local_coords=True)
+    r_a = absolute(r_i, cap, cell_len, origin)
+    if mode == "absolute":
+        return r_a, x_halo(r_a, nx, cap, box[0]), dims, box, {}
+    rows = torch.cat([r_a[:, -1:], r_a, r_a[:, :1]], dim=1)
+    rows[:, 0, 1] -= box[1] * rows[:, 0, 3]
+    rows[:, -1, 1] += box[1] * rows[:, -1, 3]
+    rows = torch.cat([rows[-1:], rows, rows[:1]], dim=0)
+    rows[0, :, 2] -= box[2] * rows[0, :, 3]
+    rows[-1, :, 2] += box[2] * rows[-1, :, 3]
+    return (r_a, x_halo(rows, nx, cap, box[0]), dims, box,
+            dict(z_halo=True, y_halo=True))
+
+
+# the corner of the absolute near-rc scene: an f32 coordinate in
+# [128, 256) carries an ulp of 2^-16 = 1.5e-5, as at a box of 174 sigma
+ABS_ORIGIN = 160.0
+
+
+def near_rc_absolute(cap, dtype, device):
+    """The near-rc check scene of K4 in absolute coordinates far from the
+    origin: 6^3 cells of edge 2.6 with 0-3 molecules each and 300 more
+    each at rc (1 + k eps) from another, eps one coordinate ulp at
+    ABS_ORIGIN over rc, so that pair distances fall within an ulp of rc
+    on either side; returned cell-local (row_views adds the corner)."""
+    key = ("abs", cap, dtype)
+    if key not in _SCENES:
+        ulp = float(np.spacing(np.array(ABS_ORIGIN, dtype=str(dtype).split(".")[1])))
+        counts = np.random.default_rng(cap + 5).integers(0, 4, size=(6, 6, 6))
+        _SCENES[key] = lj_scene((6, 6, 6), cap, SCENE_CL, counts, seed=cap + 5,
+                                near_rc=300, eps=ulp / RC, dtype=dtype)
+    return _SCENES[key].to(device)
 
 
 def phase_k3(device):
@@ -511,6 +576,10 @@ def phase_k3(device):
 
 
 def phase_k4(device):
+    """K4 vs its plain version in every mode of row_views on 12^3 cells
+    cut from the seed, and in cell-local mode on the check scenes (sparse,
+    full, near-rc); the near-rc scene also in absolute coordinates at
+    ABS_ORIGIN.  Each case's in-cutoff count equals the plain version's."""
     from ls1_mardyn_tpu_torch.ops.cuda_lj import (
         lj_cell_forces_row, lj_cell_forces_row_reference)
 
@@ -520,33 +589,23 @@ def phase_k4(device):
             r_i, cl, lj = cut_planes(cap, dtype, device)
             nd = r_i.shape[0]
             dims = (nd,) * 3
-            box = tuple(c * nd for c in cl)
-            r_a = absolute(r_i, cap, cl)
-            # y and z halo rows in absolute coordinates: the periodic
-            # images, put where an exchange would put them
-            rows = torch.cat([r_a[:, -1:], r_a, r_a[:, :1]], dim=1)
-            rows[:, 0, 1] -= box[1] * rows[:, 0, 3]
-            rows[:, -1, 1] += box[1] * rows[:, -1, 3]
-            rows = torch.cat([rows[-1:], rows, rows[:1]], dim=0)
-            rows[0, :, 2] -= box[2] * rows[0, :, 3]
-            rows[-1, :, 2] += box[2] * rows[-1, :, 3]
-            r2 = sub_block(r_i, cap, 2, 3, 3)
-            box2 = (2 * cl[0], 3 * cl[1], 3 * cl[2])
-            cases = {
-                "local": (r_i, x_halo(r_i, nd, cap), dims, box,
-                          dict(local_coords=True)),
-                "absolute": (r_a, x_halo(r_a, nd, cap, box[0]), dims, box, {}),
-                "yz_halo": (r_a, x_halo(rows, nd, cap, box[0]), dims, box,
-                            dict(z_halo=True, y_halo=True)),
-                "nx2": (r2, x_halo(r2, 2, cap), (2, 3, 3), box2,
-                        dict(local_coords=True)),
-            }
-            errs, outs = {}, {}
-            for tag, (ri, rj, dm, bx, extra) in cases.items():
-                kw = dict(dims=dm, cap=cap, box=bx, **lj, **extra)
+            cases = {m: (*row_views(r_i, dims, cap, cl, m), lj) for m in ROW_MODES}
+            scl = (SCENE_CL,) * 3
+            for name, r8 in check_scenes(cap, dtype, device).items():
+                cases[name] = (*row_views(r8[:, :, :4].contiguous(), (6, 6, 6),
+                                          cap, scl, "local"), SCENE_LJ)
+            cases["near_rc_abs"] = (*row_views(
+                near_rc_absolute(cap, dtype, device), (6, 6, 6), cap, scl,
+                "yz_halo", origin=ABS_ORIGIN), SCENE_LJ)
+            errs, outs, counts = {}, {}, {}
+            for tag, (ri, rj, dm, bx, extra, p) in cases.items():
+                kw = dict(dims=dm, cap=cap, box=bx, **p, **extra)
                 outs[tag] = lj_cell_forces_row(ri, rj, **kw)
                 errs[tag] = max(rel_errors(
                     outs[tag], lj_cell_forces_row_reference(ri, rj, **kw)))
+                counts[tag] = check_counts(
+                    f"K4 {tag} ({dtype}, cap {cap})", ri, rj, kernel="row",
+                    dims=dm, cap=cap, box=bx, rc2=p["rc2"], **extra)
             # the three full-grid views describe the same periodic fluid
             errs["yz_halo=absolute"] = max(rel_errors(outs["yz_halo"],
                                                      outs["absolute"]))
@@ -562,7 +621,7 @@ def phase_k4(device):
                 errs["absolute_f32_vs_f64"] = max(rel_errors(outs["absolute"], f64))
             say("K4", dtype=str(dtype).split(".")[1], cap=cap, grid=dims,
                 rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
-                limit=lim)
+                inside_ordered=json.dumps(counts), counts_equal=True, limit=lim)
             loose = errs.pop("absolute_f32_vs_f64", 0.0)
             check(max(errs.values()) <= lim and loose <= 5e-3,
                   f"K4 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
@@ -627,35 +686,61 @@ def phase_k8(device):
 
 
 def phase_k9(device):
-    """K9 vs its plain version on the RMM state's 8-plane tensor read in
-    place (empty slots carry the sentinel fill), plain and gram."""
+    """K9 vs its plain version, plain and gram, on the RMM state's 8-plane
+    tensor read in place (empty slots carry the sentinel fill) and on the
+    check scenes (sparse, full, near-rc); each case's in-cutoff count
+    equals the plain version's (the Gram r^2's for gram).  The warp
+    skeleton takes every cap the wrappers take: cap 1024 on 3^3 cells
+    agrees, cap 1056 raises."""
     from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import (
         lj_cell_forces_zb, lj_cell_forces_zb_reference)
+
+    def run(tag, r4, dims, cap, cl, lj, errs, counts):
+        kw = dict(dims=dims, cap=cap, cell_len=cl, **lj)
+        for gram, mode in ((False, "zb"), (True, "zb_gram")):
+            errs[f"{tag}/{mode}"] = max(rel_errors(
+                lj_cell_forces_zb(r4, gram=gram, **kw),
+                lj_cell_forces_zb_reference(r4, gram=gram, **kw)))
+            counts[f"{tag}/{mode}"] = check_counts(
+                f"K9 {tag} {mode} ({r4.dtype}, cap {cap})", r4, kernel=mode,
+                dims=dims, cap=cap, cell_len=cl, rc2=lj["rc2"])
 
     for dtype, lim in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         for cap in (32, 64):
             sim = cut_sim(cap, dtype, device)
             check(sim.sentinel and sim.state.planes.shape[2] == 8,
                   "K9: the cut state carries no sentinel fill")
-            r4 = sim.state.planes[:, :, :4, :]
-            kw = dict(dims=sim.spec.dims, cap=cap, cell_len=sim.cell_len,
-                      eps24=sim.eps24, sig2=sim.sig2, shift6=sim.shift6, rc2=sim.rc2)
-            errs = {f"gram={g}": max(rel_errors(
-                lj_cell_forces_zb(r4, gram=g, **kw),
-                lj_cell_forces_zb_reference(r4, gram=g, **kw))) for g in (False, True)}
+            errs, counts = {}, {}
+            run("state", sim.state.planes[:, :, :4, :], sim.spec.dims, cap,
+                sim.cell_len, dict(eps24=sim.eps24, sig2=sim.sig2,
+                                   shift6=sim.shift6, rc2=sim.rc2), errs, counts)
+            for name, r8 in check_scenes(cap, dtype, device).items():
+                run(name, r8[:, :, :4, :], (6, 6, 6), cap, (SCENE_CL,) * 3,
+                    SCENE_LJ, errs, counts)
             say("K9", dtype=str(dtype).split(".")[1], cap=cap, grid=sim.spec.dims,
-                rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}), limit=lim)
+                rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
+                inside_ordered=json.dumps(counts), counts_equal=True, limit=lim)
             check(max(errs.values()) <= lim,
                   f"K9 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
-    # cap 512 in f64 stages 442 KB of cells a block: the launch must raise
-    big = torch.zeros((3, 3, 4, 3 * 512), dtype=torch.float64, device=device)
+    # the cap limit is the wrappers' (<= 1024), not shared memory
+    big = lj_scene((3, 3, 3), 1024, SCENE_CL,
+                   np.random.default_rng(1).integers(0, 40, size=(3, 3, 3)),
+                   seed=1, dtype=torch.float64, device=device)
+    errs, counts = {}, {}
+    run("cap1024", big, (3, 3, 3), 1024, (SCENE_CL,) * 3, SCENE_LJ, errs, counts)
+    check(max(errs.values()) <= 1e-12, f"K9 at cap 1024: {errs}")
     try:
-        lj_cell_forces_zb(big, **dict(kw, dims=(3, 3, 3), cap=512))
+        lj_cell_forces_zb(torch.zeros((3, 3, 4, 3 * 1056), dtype=torch.float64,
+                                      device=device),
+                          dims=(3, 3, 3), cap=1056, cell_len=(SCENE_CL,) * 3,
+                          **SCENE_LJ)
         raised = False
-    except RuntimeError:
+    except ValueError:
         raised = True
-    check(raised, "K9 launched with more shared memory than a block has")
-    say("K9", launches=lj_cell_forces_zb.launches, cap512_raises=raised)
+    check(raised, "K9 took cap 1056")
+    say("K9", cap1024=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
+        inside_ordered_cap1024=json.dumps(counts), cap1056_raises=raised,
+        launches=lj_cell_forces_zb.launches)
 
 
 def packed_views(planes, dims, cap):
@@ -1347,14 +1432,23 @@ def plain_once_ms(fn):
 def ptxas_report(name):
     """Registers, spills and static shared memory of each kernel of
     csrc/<name>.cu, read from the ptxas report (nvcc -Xptxas -v) that
-    ops/_build.py keeps beside the library: {"f32"|"f64"|entry: {...}}."""
+    ops/_build.py keeps beside the library: {"f32"|"f64"|entry: {...}};
+    a warp-skeleton kernel (csrc/lj_warp.cuh) as "f32 macro vi gram"
+    with its template flags, e.g. "f32 100" (u6/virial, no Vi, no Gram)."""
+    import re
+
     from ls1_mardyn_tpu_torch.ops import _build
 
     out, cur = {}, None
     for ln in _build.build_log(name).splitlines():
         if "Compiling entry function" in ln:
             ent = ln.split("'")[1]
-            cur = "f32" if "IfN" in ent else ("f64" if "IdN" in ent else ent)
+            warp = re.search(r"warp_cells_kernelI([fd])((?:Lb[01]E){3})", ent)
+            if warp:
+                cur = ("f32 " if warp.group(1) == "f" else "f64 ") + "".join(
+                    re.findall(r"Lb([01])E", warp.group(2)))
+            else:
+                cur = "f32" if "IfN" in ent else ("f64" if "IdN" in ent else ent)
             out[cur] = {}
         elif cur and "spill stores" in ln:
             nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
@@ -1517,16 +1611,21 @@ def ms_walk_report(lib, bound, r_i, cells, nx, cap, tbl=None):
 _BOUND_CHECKED = {}
 
 
-def lj_warp_walk(r_i, dims, cap, cell_len, rc2, cull=True, split=True):
-    """What the warp skeleton of K1 and K3 (csrc/lj_warp.cuh) walks on
-    this state, counted here with torch from the same data: per warp (32
-    slots of an i cell holding n_i valid ones), the valid j slots of its
-    27 neighbour cells staged, those kept by the box cull (boxdist2 <
-    rc^2, rounded as the kernel rounds it; all with cull=False), and the
-    j iterations walked, with the warp split in two halves (ways = 2)
-    for n_i <= 16: 32/ways iterations for each full ring of 32 kept
-    slots and ceil(rest/ways) for the last.  cull=False and split=False
-    count the earlier design steps without the cull or the split
+def lj_warp_walk(r_i, dims, cap, cell_len, rc2, cull=True, split=True,
+                 j_cells=None, gram=False):
+    """What the warp skeleton of K1, K3, K4 and K9 (csrc/lj_warp.cuh)
+    walks on this state, counted here with torch from the same data: per
+    warp (32 slots of an i cell holding n_i valid ones), the valid j slots
+    of its 27 neighbour cells staged, those kept by the box cull
+    (boxdist2 < rc^2, rounded as the kernel rounds it; with `gram` below
+    the Gram form's threshold rc^2 + kappa (max s_i + s_j); all with
+    cull=False), and the j iterations walked, with the warp split in two
+    halves (ways = 2) for n_i <= 16: 32/ways iterations for each full
+    ring of 32 kept slots and ceil(rest/ways) for the last.  j_cells:
+    the neighbour cells as ops/cuda_lj's plain versions stage them (K1's
+    periodic cell-local ones by default; K4's j view via
+    ops/cuda_lj._row_j_cells).  cull=False and split=False count the
+    earlier design steps without the cull or the split
     (tools/lj_kernel_times.py --walk); the kernel has both.  Returns the
     totals and the means per warp with a valid i (the block skeleton
     walked 27 * cap iterations per i slot)."""
@@ -1543,7 +1642,14 @@ def lj_warp_walk(r_i, dims, cap, cell_len, rc2, cull=True, split=True):
     n_i = vw.sum(-1)
     kept = torch.zeros_like(n_i)
     staged = torch.zeros_like(n_i)
-    j_cells = _local_j_cells(pos, val, cell_len, nz, False)
+    if j_cells is None:
+        j_cells = _local_j_cells(pos, val, cell_len, nz, False)
+    thr = rc2
+    if gram:
+        kappa = 2.0 ** (-18 if pos.dtype == torch.float32 else -47)
+        s_i = pw[..., 0] * pw[..., 0] + pw[..., 1] * pw[..., 1] \
+            + pw[..., 2] * pw[..., 2]
+        smax = torch.where(vw, s_i, 0.0).amax(4)[..., None]
     for dz in (-1, 0, 1):
         for dy in (-1, 0, 1):
             for dx in (-1, 0, 1):
@@ -1554,9 +1660,13 @@ def lj_warp_walk(r_i, dims, cap, cell_len, rc2, cull=True, split=True):
                 g = torch.where(a > 0, a, torch.where(b > 0, b, 0.0))
                 bd2 = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] \
                     + g[..., 2] * g[..., 2]
+                if gram:
+                    s_j = pj[..., 0] * pj[..., 0] + pj[..., 1] * pj[..., 1] \
+                        + pj[..., 2] * pj[..., 2]
+                    thr = rc2 + kappa * (smax + s_j)
                 vj = vj[:, :, :, None]
                 staged += vj.sum(-1)
-                kept += (vj & ((bd2 < rc2) | (not cull))).sum(-1)
+                kept += (vj & ((bd2 < thr) | (not cull))).sum(-1)
     ways = torch.where((n_i <= 16) & split, 2, 1)
     iters = (kept // 32) * (32 // ways) + (kept % 32 + ways - 1) // ways
     live = n_i > 0
@@ -1706,6 +1816,12 @@ def phase_times(sim_rmm, sim_gen, smi):
                 lambda: fn(*args, compute_vi=True, **kw), 10)
             extra["walk"] = json.dumps(lj_warp_walk(
                 r_i, dims, cap, path.spec.cell_len, path.rc2))
+        else:
+            extra["walk"] = json.dumps(lj_warp_walk(
+                r_i, dims, cap, path.spec.cell_len, path.rc2,
+                j_cells=cuda_lj._row_j_cells(r_j, dims=dims, cap=cap,
+                                             box=path.spec.box,
+                                             local_coords=True)))
         extra["ptxas"] = json.dumps(ptxas_report(
             "lj_cells_cw" if key == "K3" else "lj_cells_row"))
         say("times", kernel=key, grid=dims, cap=cap, pair_lanes=pairs,
@@ -1829,6 +1945,12 @@ def variant_times(rsim, r4, smi, lj_times):
             e = max(rel_errors(f(*args, **kw), g(*args, **kw)))
             check(e <= 1e-5, f"{key} {mode} at its path's shape: rel err {e}")
             more["rel_err_" + mode] = "%.3e" % e
+        if key == "K9":
+            more.update(walk=json.dumps(lj_warp_walk(
+                r4, dims, cap, rsim.cell_len, rsim.rc2)),
+                walk_gram=json.dumps(lj_warp_walk(
+                    r4, dims, cap, rsim.cell_len, rsim.rc2, gram=True)),
+                ptxas=json.dumps(ptxas_report("lj_cells_zb")))
         if key == "K10":
             lanes = packed_pair_lanes(pos4, meta, nx)
             more.update(Wp=Wp, feasible=feas, pair_lanes=lanes,

@@ -11,9 +11,9 @@
 //
 // The kernel skeleton (a warp a 32-slot i chunk, box-culled and
 // ballot-compacted j slots), its design and what bounded the block
-// skeleton before it are lj_warp.cuh's.  The TPU kernel's halo-padded j view, phase-stacked j copies and the
-// plane-3 scalar packing are layout tricks of the TPU and are not
-// reproduced.
+// skeleton before it are lj_warp.cuh's.  The TPU kernel's halo-padded j
+// view, phase-stacked j copies and the plane-3 scalar packing are layout
+// tricks of the TPU and are not reproduced.
 
 #include "lj_warp.cuh"
 
@@ -25,8 +25,9 @@ int launch(const void* r, void* f, void* part, int nx, int ny, int nz, int cap,
            double sig2, double shift6, double rc2, int macro, void* stream) {
   const ljk::LocalNbr<T> nbr{(const T*)r, nx, ny, nz, cap, planes, 0,
                              T(clx), T(cly), T(clz)};
-  return ljw::launch_warp<T, false>(r, planes, f, part, nx, ny, nz, cap, nbr,
-                                    eps24, sig2, shift6, rc2, macro, 0, stream);
+  return ljw::launch_warp<T, false, false, false>(
+      r, planes, f, part, nx, ny, nz, cap, nbr, eps24, sig2, shift6, rc2, macro,
+      0, 0, stream);
 }
 
 }  // namespace

@@ -34,8 +34,9 @@ int launch(const void* ri, const void* rj, void* f, void* part, int nx, int ny,
            int macro, int vi, void* stream) {
   const ljk::LocalNbr<T> nbr{(const T*)rj, nx, ny, nz, cap, pj, zhalo,
                              T(clx), T(cly), T(clz)};
-  return ljw::launch_warp<T, true>(ri, pi, f, part, nx, ny, nz, cap, nbr, eps24,
-                                   sig2, shift6, rc2, macro, vi, stream);
+  return ljw::launch_warp<T, true, false, false>(
+      ri, pi, f, part, nx, ny, nz, cap, nbr, eps24, sig2, shift6, rc2, macro, vi,
+      0, stream);
 }
 
 }  // namespace

@@ -22,9 +22,13 @@
 // cell edge >= rc, so no pair is lost).  Its identity-matmul transposes,
 // selector matmuls and the plane-3 scalar packing are not reproduced.
 //
-// The kernel skeleton, its design and what bounds it are lj_pair.cuh's.
+// The kernel skeleton (a warp a 32-slot i chunk, box-culled and
+// ballot-compacted j slots), its design and what bounded the block
+// skeleton before it are lj_warp.cuh's; this file adds the neighbour
+// functor of the j view.  The window is +-1 cell for any hx: the halo
+// cells beyond the first are never read.
 
-#include "lj_pair.cuh"
+#include "lj_warp.cuh"
 
 namespace {
 
@@ -63,8 +67,9 @@ int launch(const void* ri, const void* rj, void* f, void* part, int nx, int ny,
            double rc2, int macro, void* stream) {
   const RowNbr<T> nbr{(const T*)rj, nx, ny, nz, cap, hx, local, zhalo, yhalo,
                       T(ux), T(uy), T(uz)};
-  return ljk::launch_cells<T, false>(ri, 4, f, part, nx, ny, nz, cap, nbr, eps24,
-                                     sig2, shift6, rc2, macro, 0, stream);
+  return ljw::launch_warp<T, false, false, false>(
+      ri, 4, f, part, nx, ny, nz, cap, nbr, eps24, sig2, shift6, rc2, macro, 0, 0,
+      stream);
 }
 
 }  // namespace
@@ -72,7 +77,7 @@ int launch(const void* ri, const void* rj, void* f, void* part, int nx, int ny,
 extern "C" {
 
 int lj_cells_row_num_blocks(int nx, int ny, int nz, int cap) {
-  return ljk::num_blocks(nx, ny, nz, cap);
+  return ljw::num_blocks(nx, ny, nz, cap);
 }
 
 int lj_cells_row_f32(const void* ri, const void* rj, void* f, void* part, int nx,

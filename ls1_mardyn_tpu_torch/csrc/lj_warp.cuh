@@ -1,26 +1,31 @@
-// Warp-level skeleton of the 1CLJ cell kernels K1 (lj_cells.cu) and K3
-// (lj_cells_cw.cu): one warp owns 32 slots of one i cell, stages the j
-// slots of its 27 neighbour cells itself, keeps only those that can hold
-// a pair inside the cutoff, and walks the kept slots.  The pair term,
-// the rounding helpers, the neighbour functor (ljk::LocalNbr) and the
-// per-block reduction of u6 and the virial are lj_pair.cuh's; K4
-// (lj_cells_row.cu) keeps lj_pair.cuh's block skeleton.
+// Warp-level skeleton of the 1CLJ cell kernels K1 (lj_cells.cu), K3
+// (lj_cells_cw.cu), K4 (lj_cells_row.cu) and K9 (lj_cells_zb.cu): one
+// warp owns 32 slots of one i cell, stages the j slots of its 27
+// neighbour cells itself, keeps only those that can hold a pair inside
+// the cutoff, and walks the kept slots.  The pair term, the rounding
+// helpers, the neighbour functor of the cell-local layouts
+// (ljk::LocalNbr) and the per-block reduction of u6 and the virial are
+// lj_pair.cuh's; a kernel source adds its neighbour functor (where the j
+// slots of the cell at offset (dx, dy, dz) lie, and their image shift)
+// and its extern "C" entry points.
 //
-// What bounded the block skeleton (lj_pair.cuh: cell_forces_kernel) on
-// this card: dead pair lanes.  It ran every i slot against every one of
-// the 27 * cap staged j slots, empty ones and ones no i of the cell can
-// reach, and the LJ body was taken by some lane of nearly every warp
-// iteration, so every lane paid the whole pair.  On K1's main state
-// (grid (56,60,60), cap 32, 20.8 molecules a cell) 42% of the lanes were
-// pairs of two occupied slots and 3.9% pairs inside the cutoff; on K3's
-// (69,69,69), 12.8 a cell, 16% were occupied.  The kernel was bound by
-// instruction throughput on those lanes, behind 54 block barriers a
-// block.
+// What bounded the block skeleton this replaced (one block of 128/cap
+// cells, one thread an i slot, each neighbour cell staged in shared
+// memory between two block barriers): dead pair lanes.  It ran every i
+// slot against every one of the 27 * cap staged j slots, empty ones and
+// ones no i of the cell can reach, and the LJ body was taken by some
+// lane of nearly every warp iteration, so every lane paid the whole
+// pair.  On K1's main state (grid (56,60,60), cap 32, 20.8 molecules a
+// cell) 42% of the lanes were pairs of two occupied slots and 3.9% pairs
+// inside the cutoff; on K3's (69,69,69), 12.8 a cell, 16% were occupied.
+// The kernel was bound by instruction throughput on those lanes, behind
+// 54 block barriers a block.
 //
 // Design:
 //   * a warp is one 32-slot chunk of one i cell (cap 64: two warps a
 //     cell); a block is WARPS warps of consecutive chunks, i.e. of
-//     consecutive x cells, so neighbour rows are shared through L1.  No
+//     consecutive x cells (K9: consecutive y rows, warp_cell), so
+//     neighbour rows are shared through L1.  No
 //     block barrier until the block reduction at the end: a warp meets
 //     its lanes at __syncwarp only;
 //   * i compaction: the valid i slots of the chunk move to the low lanes
@@ -43,13 +48,44 @@
 //     fl(dx^2) >= fl(g^2), and the two rounded sums keep the order:
 //     fl(boxdist2) <= fl(r^2) for every i of the box.  A culled j
 //     therefore held no pair inside the cutoff: no margin is needed and
-//     no pair is dropped;
+//     no pair is dropped.  Nothing here depends on the size of the
+//     coordinates, so the cull is as exact in K4's absolute mode;
 //   * the own-cell pair of a slot with itself is skipped by slot id (the
 //     fourth word of a staged entry), as in the plain version, not by
 //     r^2 = 0;
 //   * r^2 rounded as in the plain PyTorch versions (no FMA contraction),
 //     IEEE division for 1/r^2; every output slot is written (0 where
 //     invalid), since the wrapper allocates the forces with torch.empty.
+//
+// The Gram form (K9's gram mode, GRAM): r^2 = (s_j + s_i) - (c + c) with
+// s = |r|^2 and c = r_i.r_j, each a norm2-ordered sum, in the order of
+// the plain version, so both take the same side of the cutoff.  s_j is
+// formed once, at staging, into a second J4 of the ring entry (J4 has
+// no free word).  The force F_i = r_i * sum fac - sum fac * r_j is summed
+// as sum fac * (r_i - r_j), the same function without the cancellation
+// of its two terms: on dense f32 scenes that cancellation moves the
+// plain version itself by ~1e-5 of max|F| with the order of its sums
+// (PERF.md).  The Gram cull needs a margin, because the Gram r^2 is
+// formed by cancellation and can come out below the true distance.
+// With u the unit roundoff (2^-24 in f32, 2^-53 in f64), S = s_i + s_j
+// exact, and gamma_3 = 3u to first order:
+//   * |fl(s) - s| <= gamma_3 s (nonnegative terms) and
+//     |fl(c) - c| <= gamma_3 sum |x_i x_j| <= gamma_3 S / 2;
+//   * a = fl(s_j + s_i) is within 4u S of S; c + c is exact;
+//   * fl(a - 2c) = (a - 2c)(1 + d), |d| <= u, |a - 2c| <= 2S (1 + 4u);
+//   so |gram r^2 - r^2| <= (4 + 3 + 2) u S = 9u S to first order.  The
+//   true r^2 of any i of the box is >= the exact box distance B*, and
+//   the rounded B >= T keeps B* >= T (1 + u)^-5 (five roundings, each
+//   monotone).  The cull keeps j iff B < T = fl(rc^2 + kappa *
+//   fl(smax + s_j)), smax the largest fl(s_i) of the warp's valid i and
+//   kappa = 64u (a power of two: the product is exact).  Since
+//   fl(smax + s_j) >= S (1 - 4u) for every i of the box, a culled j has
+//   B* >= rc^2 (1 - 6u) + kappa S (1 - 10u), so r^2 >= rc^2 (1 - 6u) and
+//   S >= r^2 / 2 (|a - b|^2 <= 2 |a|^2 + 2 |b|^2), hence 6u rc^2 <= 13u S
+//   and B* >= rc^2 + (64 - 13 - 1) u S; its Gram r^2 is then >= rc^2 +
+//   41u S > rc^2 for every i of the box: no pair of the plain Gram
+//   version is dropped.  At cell-local coordinates (S <= ~130 at
+//   cell edge 2.9) the margin is <= 5e-4 in f32 against rc^2 = 6.25.
 //
 // What bounds it now (H100, PERF.md): the walk.  On K1's main state a
 // warp walks 283 j iterations (864 before), on K3's 113; each costs ~14
@@ -104,10 +140,44 @@ __device__ __forceinline__ T gap(T x, T lo, T hi) {
   return a > T(0) ? a : (b > T(0) ? b : T(0));
 }
 
-// Number of blocks of a launch (rows of the part[., 2] buffer).
-inline int num_blocks(int nx, int ny, int nz, int cap) {
-  const long long warps = (long long)nx * ny * nz * (cap / 32);
+// Number of blocks of a launch (rows of the part[., 2] buffer), in K1's
+// order or the band order (warp_cell).
+inline int num_blocks(int nx, int ny, int nz, int cap, bool band = false) {
+  const int nch = cap / 32;
+  if (band && WARPS % nch == 0) {
+    const int rows = WARPS / nch;
+    return nx * ((ny + rows - 1) / rows) * nz;
+  }
+  const long long warps = (long long)nx * ny * nz * nch;
   return (int)((warps + WARPS - 1) / WARPS);
+}
+
+// The i cell (cx, cy, cz) and 32-slot chunk of this warp; false past the
+// grid.  K1's order: a block is WARPS consecutive chunks, i.e. consecutive
+// x cells of one row.  The band order (BAND, K9): a block is the chunks of
+// WARPS / nch consecutive y rows of one x cell and z plane, and blocks run
+// along x; where nch does not divide WARPS, K1's order.
+template <bool BAND>
+__device__ __forceinline__ bool warp_cell(const ljk::Grid& gd, int& cx, int& cy,
+                                          int& cz, int& ch) {
+  const int nch = gd.cap >> 5, w = threadIdx.x >> 5;
+  if (BAND && WARPS % nch == 0) {
+    const int rows = WARPS / nch, nyb = (gd.ny + rows - 1) / rows;
+    cx = (int)(blockIdx.x % gd.nx);
+    const int q = (int)(blockIdx.x / gd.nx);
+    cy = (q % nyb) * rows + w / nch;
+    cz = q / nyb;
+    ch = w % nch;
+    return cy < gd.ny && cz < gd.nz;
+  }
+  const long long gw = (long long)blockIdx.x * WARPS + w;
+  const long long cell = gw / nch;
+  cx = (int)(cell % gd.nx);
+  const long long q = cell / gd.nx;
+  cy = (int)(q % gd.ny);
+  cz = (int)(q / gd.ny);
+  ch = (int)(gw - cell * nch);
+  return cell < (long long)gd.nx * gd.ny * gd.nz;
 }
 
 // A force sum of the slot of this lane: with the warp split, the two
@@ -120,15 +190,37 @@ __device__ __forceinline__ T to_slot(T v, int ways, int rank, bool valid) {
   return valid ? v : T(0);
 }
 
-// The pair of i `me` and a staged j: its terms added to `a` if it lies
-// inside the cutoff and is not the slot with itself.
-template <typename T, bool MACRO, bool VI>
-__device__ __forceinline__ void pair(const J4<T>& me, const J4<T>& j,
+// kappa of the Gram form's cull margin (see above): 64u, 2^-18 in f32
+// and 2^-47 in f64
+template <typename T>
+__device__ __forceinline__ T gram_kappa() {
+  if constexpr (sizeof(T) == 4) {
+    return T(0x1p-18);
+  } else {
+    return T(0x1p-47);
+  }
+}
+
+// The pair of i `me` (s_i = si in the Gram form) and a staged j (s_j =
+// sj): its terms added to `a` if it lies inside the cutoff and is not
+// the slot with itself.  The Gram form differs only in how r^2 is
+// formed; the force is fac * (r_i - r_j) in both.
+template <typename T, bool MACRO, bool VI, bool GRAM>
+__device__ __forceinline__ void pair(const J4<T>& me, T si, const J4<T>& j, T sj,
                                      const ljk::LJ<T>& lj, ljk::Acc<T>& a) {
+  using ljk::add_rn;
+  using ljk::mul_rn;
   const T ddx = me.x - j.x;
   const T ddy = me.y - j.y;
   const T ddz = me.z - j.z;
-  const T dr2 = ljk::norm2(ddx, ddy, ddz);
+  T dr2;
+  if constexpr (GRAM) {
+    const T c = add_rn(add_rn(mul_rn(me.x, j.x), mul_rn(me.y, j.y)),
+                       mul_rn(me.z, j.z));
+    dr2 = ljk::sub_rn(add_rn(sj, si), add_rn(c, c));
+  } else {
+    dr2 = ljk::norm2(ddx, ddy, ddz);
+  }
   if (dr2 < lj.rc2 && j.w != me.w) {
     T fac, u6;
     ljk::lj_term(dr2, lj.eps24, lj.sig2, fac, u6);
@@ -148,56 +240,63 @@ __device__ __forceinline__ void pair(const J4<T>& me, const J4<T>& j,
   }
 }
 
-// One i `me` against the staged entries ring[(tail + k) % RING] for
+// J4 words of a ring entry: (x, y, z, w), and in the Gram form a second
+// J4 whose x is s_j (a widened entry measured 8% faster than a parallel
+// ring of s_j, PERF.md)
+template <bool GRAM>
+__host__ __device__ constexpr int entry_words() {
+  return GRAM ? 2 : 1;
+}
+
+// One i `me` against the staged entries (tail + k) % RING of the ring for
 // k = h, h + WAYS, ... < n (n <= 32), h the lane's half (0 unsplit).
 // WAYS is a compile-time constant, so the walk of a full ring (n = 32)
 // unrolls completely.
-template <typename T, bool MACRO, bool VI, int WAYS>
+template <typename T, bool MACRO, bool VI, bool GRAM, int WAYS>
 __device__ __forceinline__ void walk(const J4<T>* ring, int tail, int n,
-                                     const J4<T>& me, const ljk::LJ<T>& lj,
+                                     const J4<T>& me, T si, const ljk::LJ<T>& lj,
                                      ljk::Acc<T>& a) {
+  constexpr int EW = entry_words<GRAM>();
   const int h = (threadIdx.x & 31) / (32 / WAYS);
   for (int b = 0; b < 32 / WAYS; ++b) {
     const int k = b * WAYS + h;
     if (k >= n) break;
-    pair<T, MACRO, VI>(me, ring[(tail + k) & (RING - 1)], lj, a);
+    const int e = EW * ((tail + k) & (RING - 1));
+    pair<T, MACRO, VI, GRAM>(me, si, ring[e], GRAM ? ring[e + 1].x : T(0), lj, a);
   }
 }
 
 // walk, split in two halves or not
-template <typename T, bool MACRO, bool VI>
+template <typename T, bool MACRO, bool VI, bool GRAM>
 __device__ __forceinline__ void walk_ways(int ways, const J4<T>* ring, int tail,
-                                          int n, const J4<T>& me,
+                                          int n, const J4<T>& me, T si,
                                           const ljk::LJ<T>& lj, ljk::Acc<T>& a) {
   if (ways == 2)
-    walk<T, MACRO, VI, 2>(ring, tail, n, me, lj, a);
+    walk<T, MACRO, VI, GRAM, 2>(ring, tail, n, me, si, lj, a);
   else
-    walk<T, MACRO, VI, 1>(ring, tail, n, me, lj, a);
+    walk<T, MACRO, VI, GRAM, 1>(ring, tail, n, me, si, lj, a);
 }
 
 // Forces on every slot of r_i[nz, ny, pi, nx*cap] (planes x, y, z, valid;
 // pi >= 4 is the plane count of the parent tensor) into f[nz, ny, 3 or 6,
-// nx*cap]; with VI planes 3..5 hold 0.5 * sum_j f_a * dr_a.  The j cells
-// come from the neighbour functor (ljk::Stage).
-template <typename T, bool MACRO, bool VI, typename Nbr>
+// nx*cap]; with VI planes 3..5 hold 0.5 * sum_j f_a * dr_a; GRAM takes
+// the Gram form of r^2; BAND the band order of the warps (warp_cell).
+// The j cells come from the neighbour functor (ljk::Stage).
+template <typename T, bool MACRO, bool VI, bool GRAM, bool BAND, typename Nbr>
 __global__ void __launch_bounds__(WARPS * 32)
     warp_cells_kernel(const T* __restrict__ ri, int pi, T* __restrict__ f,
                       T* __restrict__ part, ljk::Grid gd, Nbr nbr, ljk::LJ<T> lj) {
-  __shared__ J4<T> rings[WARPS][RING];
+  constexpr int EW = entry_words<GRAM>();
+  __shared__ J4<T> rings[WARPS][EW * RING];
   const int lane = threadIdx.x & 31;
   J4<T>* ring = rings[threadIdx.x >> 5];
   const unsigned below = (1u << lane) - 1u;
-  const int nx = gd.nx, ny = gd.ny, cap = gd.cap, nch = cap >> 5;
+  const int nx = gd.nx, ny = gd.ny, cap = gd.cap;
   const long long W = (long long)nx * cap;
-  const long long gw = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const long long cell = gw / nch;
+  int cx, cy, cz, ch;
   ljk::Acc<T> acc;
-  if (cell < (long long)nx * ny * gd.nz) {  // warp-uniform
-    const int cx = (int)(cell % nx);
-    const long long q = cell / nx;
-    const int cy = (int)(q % ny);
-    const int cz = (int)(q / ny);
-    const int s = (int)(gw - cell * nch) * 32 + lane;
+  if (warp_cell<BAND>(gd, cx, cy, cz, ch)) {  // warp-uniform
+    const int s = ch * 32 + lane;
     const T* p = ri + ((long long)cz * ny + cy) * pi * W + (long long)cx * cap + s;
     const bool vi = p[3 * W] > T(0.5);
     const unsigned vmask = __ballot_sync(FULL, vi);
@@ -215,14 +314,17 @@ __global__ void __launch_bounds__(WARPS * 32)
       const T lox = warp_min(vi ? xi : x0), hix = warp_max(vi ? xi : x0);
       const T loy = warp_min(vi ? yi : y0), hiy = warp_max(vi ? yi : y0);
       const T loz = warp_min(vi ? zi : z0), hiz = warp_max(vi ? zi : z0);
+      // the largest s_i of the valid i (Gram cull margin; s >= 0)
+      const T smax = GRAM ? warp_max(vi ? ljk::norm2(xi, yi, zi) : T(0)) : T(0);
       // i compaction: valid slot of rank k -> lane k (and k + 16 when
       // the warp is split)
-      if (vi) ring[rank] = J4<T>{xi, yi, zi, T(s)};
+      if (vi) ring[EW * rank] = J4<T>{xi, yi, zi, T(s)};
       __syncwarp();
       const int ways = ni <= 16 ? 2 : 1;
       const int k = ways == 2 ? (lane & 15) : lane;
       const bool live = k < ni;
-      const J4<T> me = ring[live ? k : 0];
+      const J4<T> me = ring[EW * (live ? k : 0)];
+      const T si = GRAM ? ljk::norm2(me.x, me.y, me.z) : T(0);
       __syncwarp();
 
       int head = 0, cnt = 0;  // ring write position; staged, not walked
@@ -234,23 +336,35 @@ __global__ void __launch_bounds__(WARPS * 32)
             for (int js = lane; js < cap; js += 32) {
               const T* pj = st.p + js;
               bool keep = pj[3 * st.stride] > T(0.5);
-              T x = T(0), y = T(0), z = T(0);
+              T x = T(0), y = T(0), z = T(0), sj = T(0);
               if (keep) {
                 x = ljk::add_rn(pj[0], st.shx);
                 y = ljk::add_rn(pj[st.stride], st.shy);
                 z = ljk::add_rn(pj[2 * st.stride], st.shz);
-                keep = ljk::norm2(gap(x, lox, hix), gap(y, loy, hiy),
-                                  gap(z, loz, hiz)) < lj.rc2;
+                const T bd2 = ljk::norm2(gap(x, lox, hix), gap(y, loy, hiy),
+                                         gap(z, loz, hiz));
+                if constexpr (GRAM) {
+                  sj = ljk::norm2(x, y, z);
+                  keep = bd2 < ljk::add_rn(
+                                   lj.rc2, ljk::mul_rn(gram_kappa<T>(),
+                                                       ljk::add_rn(smax, sj)));
+                } else {
+                  keep = bd2 < lj.rc2;
+                }
               }
               const unsigned km = __ballot_sync(FULL, keep);
-              if (keep)
-                ring[(head + __popc(km & below)) & (RING - 1)] =
-                    J4<T>{x, y, z, self ? T(js) : T(-1)};
+              if (keep) {
+                const int e = EW * ((head + __popc(km & below)) & (RING - 1));
+                ring[e] = J4<T>{x, y, z, self ? T(js) : T(-1)};
+                if constexpr (GRAM) ring[e + 1].x = sj;
+              }
               head += __popc(km);
               cnt += __popc(km);
               __syncwarp();
               if (cnt >= 32) {
-                if (live) walk_ways<T, MACRO, VI>(ways, ring, head - cnt, 32, me, lj, acc);
+                if (live)
+                  walk_ways<T, MACRO, VI, GRAM>(ways, ring, head - cnt, 32, me,
+                                                si, lj, acc);
                 cnt -= 32;
                 __syncwarp();
               }
@@ -258,7 +372,9 @@ __global__ void __launch_bounds__(WARPS * 32)
           }
         }
       }
-      if (live) walk_ways<T, MACRO, VI>(ways, ring, head - cnt, cnt, me, lj, acc);
+      if (live)
+        walk_ways<T, MACRO, VI, GRAM>(ways, ring, head - cnt, cnt, me, si, lj,
+                                      acc);
       o[0] = to_slot(acc.fx, ways, rank, vi);
       o[W] = to_slot(acc.fy, ways, rank, vi);
       o[2 * W] = to_slot(acc.fz, ways, rank, vi);
@@ -274,33 +390,46 @@ __global__ void __launch_bounds__(WARPS * 32)
   if (MACRO) ljk::block_macro(acc.u6, acc.vir, part);
 }
 
-// Launch on `stream`; returns the cudaError_t of the launch.  HAS_VI
-// says whether the kernel source offers the per-slot virial planes.
-template <typename T, bool HAS_VI, typename Nbr>
+// Launch on `stream`; returns the cudaError_t of the launch.  HAS_VI and
+// HAS_GRAM say whether the kernel source offers the per-slot virial
+// planes and the Gram form (vi and gram select them; never both); BAND
+// the band order of the warps.
+template <typename T, bool HAS_VI, bool HAS_GRAM, bool BAND, typename Nbr>
 int launch_warp(const void* ri, int pi, void* f, void* part, int nx, int ny,
                 int nz, int cap, Nbr nbr, double eps24, double sig2,
-                double shift6, double rc2, int macro, int vi, void* stream) {
+                double shift6, double rc2, int macro, int vi, int gram,
+                void* stream) {
   const ljk::Grid gd{nx, ny, nz, cap, 0};
   const ljk::LJ<T> lj{T(eps24), T(sig2), T(shift6), T(rc2)};
-  const unsigned blocks = (unsigned)num_blocks(nx, ny, nz, cap);
+  const unsigned blocks = (unsigned)num_blocks(nx, ny, nz, cap, BAND);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define LJW_LAUNCH(M, V)                                                \
-  warp_cells_kernel<T, M, V, Nbr><<<blocks, WARPS * 32, 0, st>>>(       \
+#define LJW_LAUNCH(M, V, G)                                                \
+  warp_cells_kernel<T, M, V, G, BAND, Nbr><<<blocks, WARPS * 32, 0, st>>>( \
       (const T*)ri, pi, (T*)f, (T*)part, gd, nbr, lj)
   if constexpr (HAS_VI) {
     if (vi) {
       if (macro) {
-        LJW_LAUNCH(true, true);
+        LJW_LAUNCH(true, true, false);
       } else {
-        LJW_LAUNCH(false, true);
+        LJW_LAUNCH(false, true, false);
+      }
+      return (int)cudaGetLastError();
+    }
+  }
+  if constexpr (HAS_GRAM) {
+    if (gram) {
+      if (macro) {
+        LJW_LAUNCH(true, false, true);
+      } else {
+        LJW_LAUNCH(false, false, true);
       }
       return (int)cudaGetLastError();
     }
   }
   if (macro) {
-    LJW_LAUNCH(true, false);
+    LJW_LAUNCH(true, false, false);
   } else {
-    LJW_LAUNCH(false, false);
+    LJW_LAUNCH(false, false, false);
   }
 #undef LJW_LAUNCH
   return (int)cudaGetLastError();

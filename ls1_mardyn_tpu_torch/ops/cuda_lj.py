@@ -16,16 +16,15 @@ dr = r_i - (r_j + off*cell_len) for the neighbour cell at offset off in
 {-1,0,1}^3.  A wrapper takes the plain version only for a CPU tensor; a
 CUDA tensor launches the kernel (built at first use) or raises.
 
-K1 and K3 run on the warp skeleton of csrc/lj_warp.cuh (a warp owns 32
-slots of an i cell and walks only the j slots of its 27 neighbour cells
-that are valid and within the cutoff of its i slots' bounding box); K4
-keeps the block skeleton of csrc/lj_pair.cuh.  The launch_* functions
-are the launches behind the wrappers, on checked inputs; they raise for
-a CPU tensor unless the library was built for the CPU
-(tools/cuda_emu.py).  inside_pairs counts the ordered pairs inside the
-cutoff that K1 or K3 evaluates (a launch with eps24 = 0 and
-shift6 = 1), exactly, for the kernels' bound and its check against the
-plain version's count.
+K1, K3 and K4 run on the warp skeleton of csrc/lj_warp.cuh (a warp owns
+32 slots of an i cell and walks only the j slots of its 27 neighbour
+cells that are valid and within the cutoff of its i slots' bounding
+box).  The launch_* functions are the launches behind the wrappers, on
+checked inputs; they raise for a CPU tensor unless the library was
+built for the CPU (tools/cuda_emu.py).  inside_pairs counts the ordered
+pairs inside the cutoff that K1, K3, K4 or K9 evaluates (a launch with
+eps24 = 0 and shift6 = 1), exactly, for the kernels' bound and its
+check against the plain version's count.
 """
 
 from __future__ import annotations
@@ -381,35 +380,53 @@ def pairs_from_part(part):
     return int(round(2.0 * float(part[:, 0].sum(dtype=torch.float64))))
 
 
-def inside_pairs_reference(r_i, r_j=None, *, dims, cap, cell_len, rc2,
-                           z_halo=False):
-    """Ordered pairs inside the cutoff that the plain version of K3 (K1
-    with r_j None) evaluates on these inputs, counted from its masks."""
+def inside_pairs_reference(r_i, r_j=None, *, dims, cap, rc2, cell_len=None,
+                           z_halo=False, kernel="K3", **row):
+    """Ordered pairs inside the cutoff that the plain version of a kernel
+    evaluates on these inputs, counted from its masks: K3's (K1's and
+    K9's with r_j None), K4's (kernel="row", r_j its j view, `row` its
+    box, hx, local_coords and y_halo) or K9's Gram form
+    (kernel="zb_gram", whose r^2 is the Gram one)."""
     nx, ny, nz = dims
     pos_i, val_i = _cells(r_i, nx, cap)
+    kw = dict(cap=cap, eps24=0.0, sig2=0.0, shift6=0.0, rc2=rc2,
+              compute_macro=False, count=True)
+    if kernel == "row":
+        return _reference(pos_i, val_i, _row_j_cells(
+            r_j, dims=dims, cap=cap, z_halo=z_halo, **row), **kw)
     pos_j, val_j = (pos_i, val_i) if r_j is None else _cells(r_j, nx, cap)
-    return _reference(
-        pos_i, val_i, _local_j_cells(pos_j, val_j, cell_len, nz, z_halo),
-        cap=cap, eps24=0.0, sig2=0.0, shift6=0.0, rc2=rc2,
-        compute_macro=False, count=True)
+    j_cells = _local_j_cells(pos_j, val_j, cell_len, nz, z_halo)
+    if kernel == "zb_gram":
+        from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import _gram_reference
+
+        return _gram_reference(pos_i, val_i, j_cells, **kw)
+    return _reference(pos_i, val_i, j_cells, **kw)
 
 
-def inside_pairs(r_i, r_j=None, *, dims, cap, cell_len, rc2, z_halo=False,
-                 kernel="K3"):
-    """Ordered pairs inside the cutoff that K3 (or K1, kernel="K1", with
-    r_j None) evaluates on these inputs: the launch with eps24 = 0 and
-    shift6 = 1, counted by pairs_from_part.  A CPU tensor counts the
-    plain version's pairs (inside_pairs_reference)."""
-    kw = dict(dims=dims, cap=cap, cell_len=cell_len, rc2=rc2)
+def inside_pairs(r_i, r_j=None, *, kernel="K3", **kw):
+    """Ordered pairs inside the cutoff that a kernel evaluates on these
+    inputs: its launch with eps24 = 0 and shift6 = 1, counted by
+    pairs_from_part.  kernel: "K3" (r_j, z_halo), "K1" (r_j None),
+    "row" (K4: r_j its j view, and its box, hx, local_coords, z_halo,
+    y_halo), "zb" or "zb_gram" (K9 plain or Gram, r_j None); kw: dims,
+    cap, rc2 and cell_len (all but K4), and the kernel's options.  A CPU
+    tensor counts the plain version's pairs (inside_pairs_reference)."""
     if r_i.device.type == "cpu":
-        return inside_pairs_reference(r_i, r_j, z_halo=z_halo, **kw)
+        return inside_pairs_reference(r_i, r_j, kernel=kernel, **kw)
     kw.update(eps24=0.0, sig2=0.0, shift6=1.0, parts=True)
+    if kernel in ("K1", "zb", "zb_gram"):
+        if r_j is not None or kw.pop("z_halo", False):
+            raise ValueError(f"inside_pairs: {kernel} reads its own j cells")
     if kernel == "K1":
-        if r_j is not None or z_halo:
-            raise ValueError("inside_pairs: K1 reads its own j cells")
         _, part = launch_lj_cells(r_i, **kw)
+    elif kernel in ("zb", "zb_gram"):
+        from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import launch_lj_cells_zb
+
+        _, part = launch_lj_cells_zb(r_i, gram=kernel == "zb_gram", **kw)
+    elif kernel == "row":
+        _, part = launch_lj_cells_row(r_i, r_j, **kw)
     else:
-        _, part = launch_lj_cells_cw(r_i, r_j, z_halo=z_halo, **kw)
+        _, part = launch_lj_cells_cw(r_i, r_j, **kw)
     return pairs_from_part(part)
 
 
@@ -423,15 +440,14 @@ def _row_units(dims, box, local_coords):
     return (0.0, float(box[1]), float(box[2]))
 
 
-def lj_cell_forces_row_reference(
-    r_i, r_j, *, dims, cap, box, eps24, sig2, shift6, rc2, hx=1,
-    local_coords=False, z_halo=False, y_halo=False, compute_macro=True,
-    sentinel=False
-):
-    """Plain PyTorch version of K4 (see lj_cell_forces_row)."""
+def _row_j_cells(r_j, *, dims, cap, box, hx=1, local_coords=False,
+                 z_halo=False, y_halo=False):
+    """j_cells of K4's j view r_j [nz(+2), ny(+2), 4, (nx+2*hx)*cap]:
+    the neighbour cells of the +-1-cell window with their image shift
+    (whole cell edges in local mode; -+by / -+bz where a row index
+    wrapped in absolute mode, nothing for an explicit halo row)."""
     nx, ny, nz = dims
-    dtype, dev = r_i.dtype, r_i.device
-    pos_i, val_i = _cells(r_i, nx, cap)
+    dtype, dev = r_j.dtype, r_j.device
     pos_j, val_j = _cells(r_j, nx + 2 * hx, cap)
     units = torch.tensor(_row_units(dims, box, local_coords), dtype=dtype,
                          device=dev)
@@ -462,6 +478,20 @@ def lj_cell_forces_row_reference(
         mult[..., 2] = mz.to(dtype)[:, None, None, None]
         return pj + mult * units, vj
 
+    return j_cells
+
+
+def lj_cell_forces_row_reference(
+    r_i, r_j, *, dims, cap, box, eps24, sig2, shift6, rc2, hx=1,
+    local_coords=False, z_halo=False, y_halo=False, compute_macro=True,
+    sentinel=False
+):
+    """Plain PyTorch version of K4 (see lj_cell_forces_row)."""
+    nx = dims[0]
+    pos_i, val_i = _cells(r_i, nx, cap)
+    j_cells = _row_j_cells(r_j, dims=dims, cap=cap, box=box, hx=hx,
+                           local_coords=local_coords, z_halo=z_halo,
+                           y_halo=y_halo)
     f, _, u6, vir = _reference(
         pos_i, val_i, j_cells, cap=cap, eps24=eps24, sig2=sig2, shift6=shift6,
         rc2=rc2, compute_macro=compute_macro)

@@ -16,8 +16,10 @@ the TPU kernel and K4 do.  Energies: K7 and K9 evaluate each pair from
 both sides and halve u6 and the virial, K8 evaluates each pair once.  A
 wrapper takes the plain version only for a CPU tensor; a CUDA tensor
 launches the kernel (built at first use) or raises, also where a cap
-stages more cells than a block's shared memory holds (the entry point
-returns cudaFuncSetAttribute's status).
+stages more cells than a block's shared memory holds in K7 (the entry
+point returns cudaFuncSetAttribute's status).  K9 runs on the warp
+skeleton of K1 (csrc/lj_warp.cuh), which takes any cap the wrappers
+take; launch_lj_cells_zb is its launch on checked inputs.
 """
 
 from __future__ import annotations
@@ -187,11 +189,13 @@ def _norm2(a):
 
 
 def _gram_reference(pos_i, val_i, j_cells, *, cap, eps24, sig2, shift6, rc2,
-                    compute_macro):
+                    compute_macro, count=False):
     """The pair sum of K9's gram mode: r^2 = (|r_j|^2 + |r_i|^2) -
     (r_i.r_j + r_i.r_j) and F_i = r_i * sum_j fac - sum_j fac * r_j, in
     coordinates local to the i cell (j_cells adds the image shift).  The
-    masks (validity, cutoff, j != i) come before any Gram term counts."""
+    masks (validity, cutoff, j != i) come before any Gram term counts.
+    With `count`, the number of ordered pairs inside the cutoff by the
+    Gram r^2 (an int)."""
     nz, ny, nx = pos_i.shape[:3]
     dtype, dev = pos_i.dtype, pos_i.device
     eye = torch.eye(cap, dtype=torch.bool, device=dev)
@@ -199,6 +203,7 @@ def _gram_reference(pos_i, val_i, j_cells, *, cap, eps24, sig2, shift6, rc2,
     u6 = torch.zeros((), dtype=dtype, device=dev)
     vir = torch.zeros((), dtype=dtype, device=dev)
     zc = max(1, min(nz, _REF_CHUNK // (ny * nx * cap * cap)))
+    n_inside = 0
     for z0 in range(0, nz, zc):
         z1 = min(nz, z0 + zc)
         pi, vi = pos_i[z0:z1], val_i[z0:z1]
@@ -214,6 +219,9 @@ def _gram_reference(pos_i, val_i, j_cells, *, cap, eps24, sig2, shift6, rc2,
             m = vi[..., :, None] & vj[..., None, :] & (dr2 < rc2)
             if off == (0, 0, 0):
                 m = m & ~eye
+            if count:
+                n_inside += int(m.sum())
+                continue
             idx = m.nonzero(as_tuple=True)
             d2 = dr2[idx]
             inv = 1.0 / d2
@@ -228,6 +236,8 @@ def _gram_reference(pos_i, val_i, j_cells, *, cap, eps24, sig2, shift6, rc2,
                 u6 += (eps24 * lj12m6 + shift6).sum()
                 vir += (fac * d2).sum()
         f[z0:z1] = pi * s0[..., None] - sr
+    if count:
+        return n_inside
     return f, 0.5 * u6, 0.5 * vir
 
 
@@ -256,10 +266,10 @@ def lj_cell_forces_zb(
     """K9 wrapper: K1's function (double-sided 1CLJ forces of the
     cell-local layout r4 [nz, ny, 4, nx*cap], which may be the first 4
     planes of the RMM state's 8-plane tensor; u6 and the virial halved
-    per pair) by z bands: a block holds the j cells of a band of y rows
-    and 3 z planes in shared memory and slides along x.  With `gram`, r^2
-    and the force take the Gram form (see _gram_reference), masked on
-    validity first, so the RMM state's sentinel fill never counts.
+    per pair).  The TPU kernel walks it by z bands; the CUDA kernel runs
+    on K1's warp skeleton.  With `gram`, r^2 and the force take the Gram
+    form (see _gram_reference), masked on validity first, so the RMM
+    state's sentinel fill never counts.
     Returns (f [nz,ny,3,nx*cap], u6, vir)."""
     nx, ny, nz = dims
     what = "lj_cell_forces_zb"
@@ -267,21 +277,29 @@ def lj_cell_forces_zb(
     if min(cell_len) ** 2 < rc2:
         raise ValueError(f"{what}: cell edge {min(cell_len)} < cutoff")
     kw = dict(dims=dims, cap=cap, cell_len=cell_len, eps24=eps24, sig2=sig2,
-              shift6=shift6, rc2=rc2, compute_macro=compute_macro)
+              shift6=shift6, rc2=rc2, compute_macro=compute_macro, gram=gram)
     if r4.device.type == "cpu":
-        return lj_cell_forces_zb_reference(r4, gram=gram, **kw)
+        return lj_cell_forces_zb_reference(r4, **kw)
     _device_check(r4, what)
+    out = launch_lj_cells_zb(r4, **kw)
+    lj_cell_forces_zb.launches += 1
+    return out
+
+
+lj_cell_forces_zb.launches = 0
+
+
+def launch_lj_cells_zb(r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2,
+                       compute_macro=True, gram=False, parts=False):
+    """The launch of csrc/lj_cells_zb.cu behind lj_cell_forces_zb, on
+    checked inputs: (f, u6, vir), or (f, part) with `parts`."""
+    nx, ny, nz = dims
     P = _planes(r4, nx * cap)
-    out = _launch(
+    return _launch(
         "lj_cells_zb", r4, 3, dims, cap,
         lambda f, part: (
             r4.data_ptr(), f.data_ptr(), part.data_ptr(), nx, ny, nz, cap, P,
             *(float(c) for c in cell_len), float(eps24), float(sig2),
             float(shift6), float(rc2), int(bool(compute_macro)),
             int(bool(gram))),
-        compute_macro)
-    lj_cell_forces_zb.launches += 1
-    return out
-
-
-lj_cell_forces_zb.launches = 0
+        compute_macro, parts=parts)

@@ -1,7 +1,6 @@
-"""The 1CLJ cell kernels' device code on the CPU: csrc/lj_cells.cu (K1)
-and csrc/lj_cells_cw.cu (K3) on their warp skeleton csrc/lj_warp.cuh,
-and csrc/lj_cells_row.cu (K4, the block skeleton of csrc/lj_pair.cuh)
-as a control, compiled by g++ under the CUDA emulation shim
+"""The 1CLJ cell kernels' device code on the CPU: csrc/lj_cells.cu (K1),
+csrc/lj_cells_cw.cu (K3) and csrc/lj_cells_row.cu (K4) on their warp
+skeleton csrc/lj_warp.cuh, compiled by g++ under the CUDA emulation shim
 tools/cuda_emu.h (tools/cuda_emu.py) and run through the port's own
 launch code (ops/cuda_lj.launch_lj_cells, launch_lj_cells_cw,
 launch_lj_cells_row) on CPU tensors, against the plain versions
@@ -14,12 +13,16 @@ full-warp path (32 of 32), a cell of cap 64 as two warps, the box
 culling of j slots (pairs within an ulp of rc), the ring of staged j
 slots, Vi, explicit z halo rows, ny = 2 with nz = 1 (both periodic
 images count) and K1 reading the first 4 planes of an 8-plane tensor in
-place.  Tolerance: 1e-12 of max|F| and relative on u6 and the virial in
-f64, 1e-5 in f32.  Every case also holds the number of ordered pairs
-inside the cutoff that the kernel evaluates (a launch with eps24 = 0 and
-shift6 = 1, ops/cuda_lj.pairs_from_part) to the plain version's count
-(inside_pairs_reference), exactly: a j slot culled wrongly would lose
-its pairs there.  Scenes: chip_smoke.lj_scene, cell edge 2.6, rc 2.5.
+place; for K4 its j view in every mode of chip_smoke.row_views (cell-
+local, absolute, explicit y and z halo rows, two x halo cells, nx = 2)
+and pairs within a coordinate ulp of rc in absolute coordinates near
+160 sigma.  Tolerance: 1e-12 of max|F| and relative on u6 and the
+virial in f64, 1e-5 in f32.  Every case also holds the number of
+ordered pairs inside the cutoff that the kernel evaluates (a launch
+with eps24 = 0 and shift6 = 1, ops/cuda_lj.pairs_from_part) to the
+plain version's count (inside_pairs_reference), exactly: a j slot
+culled wrongly would lose its pairs there.  Scenes: chip_smoke.lj_scene,
+cell edge 2.6, rc 2.5.
 """
 
 import ctypes
@@ -158,8 +161,10 @@ def test_k3_device_code_matches_plain(on_emu, case):
 
 @pytest.mark.parametrize("case", ["sparse32", "full32"])
 def test_k4_block_skeleton_control(on_emu, case):
-    """K4, still on lj_pair.cuh's block skeleton, in cell-local mode on
-    the same scenes through a one-cell periodic x halo."""
+    """K4 in cell-local mode on the K1 scenes through a one-cell periodic
+    x halo (the control of the block skeleton K4 ran on before it moved
+    to the warp skeleton): its in-cutoff count is K3's on the same
+    cells."""
     r, dims, cap = scene(case)
     nx = dims[0]
     r_j = torch.cat([r[..., (nx - 1) * cap:], r, r[..., :cap]], -1).contiguous()
@@ -168,6 +173,32 @@ def test_k4_block_skeleton_control(on_emu, case):
     check_kernel(cuda_lj.launch_lj_cells_row, cuda_lj.lj_cell_forces_row_reference,
                  (r, r_j), kw, 1e-12,
                  dict(dims=dims, cap=cap, cell_len=(CL,) * 3, rc2=LJ["rc2"]))
+
+
+@pytest.mark.parametrize("case", ["absolute", "yz_halo", "hx2", "nx2",
+                                  "sparse64", "near_rc_abs"])
+def test_k4_device_code_matches_plain(on_emu, case):
+    """K4 on the warp skeleton in the modes of chip_smoke.row_views on
+    the sparse scene (cells of 0, 1 and up to 16 molecules), cap 64, and
+    the near-rc scene in absolute coordinates with y and z halo rows near
+    160 sigma, in f32 (pairs within a coordinate ulp of rc)."""
+    lim, lj = 1e-12, LJ
+    if case == "near_rc_abs":
+        lim, lj, cap = 1e-5, chip_smoke.SCENE_LJ, 32
+        dims = (6, 6, 6)
+        r = chip_smoke.near_rc_absolute(cap, torch.float32, "cpu")
+        views = chip_smoke.row_views(r, dims, cap, (CL,) * 3, "yz_halo",
+                                     origin=chip_smoke.ABS_ORIGIN)
+    else:
+        r, dims, cap = scene("sparse64" if case == "sparse64" else "sparse32")
+        views = chip_smoke.row_views(r, dims, cap, (CL,) * 3,
+                                     "local" if case == "sparse64" else case)
+    r_i, r_j, dims, box, extra = views
+    kw = dict(dims=dims, cap=cap, box=box, **lj, **extra)
+    check_kernel(cuda_lj.launch_lj_cells_row, cuda_lj.lj_cell_forces_row_reference,
+                 (r_i, r_j), kw, lim,
+                 dict(r_j=r_j, kernel="row", dims=dims, cap=cap, box=box,
+                      rc2=lj["rc2"], **extra))
 
 
 def test_cpu_tensor_only_for_a_library_built_for_the_cpu(emu_libs):

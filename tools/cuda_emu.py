@@ -49,15 +49,20 @@ def prepare(outdir: Path) -> None:
     (outdir / "cuda_runtime.h").write_text(f'#include "{SHIM}"\n')
 
 
-def build(names, outdir) -> dict:
+def build(names, outdir, edits=None) -> dict:
     """Compile csrc/<name>.cu for each name into outdir/lib<name>.so
-    (all compilers started together); returns {name: path}.  Raises
-    with the compiler's output if one fails."""
+    (all compilers started together); returns {name: path}.  `edits`
+    ({file name: function of its text}) changes the prepared copies
+    first, e.g. to build a mutant that a test must catch.  Raises with
+    the compiler's output if one fails."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
     outdir = Path(outdir)
     prepare(outdir)
+    for fname, edit in (edits or {}).items():
+        path = outdir / fname
+        path.write_text(edit(path.read_text()))
     procs = {}
     for name in names:
         out = outdir / f"lib{name}.so"

@@ -1,25 +1,42 @@
-"""K1 and K3 of several kernel designs side by side on one NVIDIA GPU.
+"""The 1CLJ cell kernels K1, K3, K4 and K9 of several designs side by side
+on one NVIDIA GPU.
 
-    python3 tools/lj_kernel_times.py [--variant TAG=DIR[:FLAGS]] ... [--reps 10] [--walk]
+    python3 tools/lj_kernel_times.py [--variant TAG=DIR[:FLAGS]] ...
+        [--kernels K1,K3,K4,K9] [--no-check TAG] ... [--reps 10] [--walk]
+        [--gram-order]
 
-Builds csrc/lj_cells.cu (K1) and csrc/lj_cells_cw.cu (K3) of each
-variant (tools/kernel_variants.py: DIR a copy of
-ls1_mardyn_tpu_torch/csrc, e.g. a parent commit's from `git archive` or
-an edited copy, and optional nvcc flags; default: the checkout's own
-csrc, tag "tree") and prints each library's ptxas report (registers,
-spills, shared memory).  Each variant is first held against the plain
-versions by chip_smoke.py's K1 and K3 phases (f32 and f64, every case,
-exact in-cutoff counts).  Then every variant is timed with CUDA events,
-in turns A B ... B A, on the full-width 1CLJ start state of
-chip_smoke.py (N = 4,194,304, f32): K1 on the RMM engine's planes (grid
-(56,60,60), cap 32, without u6/virial as the RMM path runs most steps),
-K3 on the general path's layout (grid (69,69,69), cap 32, with
-u6/virial as that path runs it) and K3 on K1's grid (without
-u6/virial); and held against the plain versions there.  With --walk the
-j slots a warp of the warp skeleton (csrc/lj_warp.cuh) stages, keeps
-and walks on each state are counted on the host
-(chip_smoke.lj_warp_walk), for the design steps a (no box cull, no
-half-warp split), b (cull, no split) and c (both, the shipped kernel).
+Builds csrc/lj_cells.cu (K1), csrc/lj_cells_cw.cu (K3),
+csrc/lj_cells_row.cu (K4) and csrc/lj_cells_zb.cu (K9) of each variant
+(tools/kernel_variants.py: DIR a copy of ls1_mardyn_tpu_torch/csrc, e.g.
+a parent commit's from `git archive` or an edited copy, and optional
+nvcc flags; default: the checkout's own csrc, tag "tree") and prints
+each library's ptxas report (registers, spills, shared memory).  Each
+variant is first held against the plain versions by chip_smoke.py's
+phases of the selected kernels (f32 and f64, every case, exact in-cutoff
+counts); --no-check skips that for a variant (a parent tree whose
+kernels take fewer cases).  Then every variant is timed with CUDA
+events, in turns A B ... B A, on the full-width 1CLJ start state of
+chip_smoke.py (N = 4,194,304, f32):
+  K1               the RMM engine's planes (grid (56,60,60), cap 32),
+                   without u6/virial as the RMM path runs most steps;
+  K3 on K1's grid  the same state, without u6/virial;
+  K3               the general path's layout (grid (69,69,69), cap 32),
+                   with u6/virial as that path runs it;
+  K4               the general path's layout and its one-cell x halo, with
+                   u6/virial (the general path with cw off);
+  K4 on K1's grid  the RMM state through the view of its switch cw = False,
+                   without u6/virial;
+  K9, K9 gram      the RMM planes read in place, without u6/virial;
+and held against the plain versions there.  With --walk the j slots a
+warp of the warp skeleton (csrc/lj_warp.cuh) stages, keeps and walks on
+each call's state are counted on the host (chip_smoke.lj_warp_walk), for
+the design steps a (no box cull, no half-warp split), b (cull, no split)
+and c (both, the shipped kernel; for K9 gram with the Gram margin).
+With --gram-order K9's Gram form in f32 is held, on chip_smoke.py's
+check scenes and an 8^3 cut of the RMM state, against the plain version
+on the card and on the CPU and against the f64 plain version (the f32
+inputs cast), each as max|dF| / max|F|: how far the f32 Gram force moves
+with the order of its sums.
 """
 
 import argparse
@@ -34,13 +51,17 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 import kernel_variants as kv  # noqa: E402
 
-LIBS = ("lj_cells", "lj_cells_cw")
+# library and check phase of each kernel
+KERNELS = {"K1": ("lj_cells", cs.phase_k1), "K3": ("lj_cells_cw", cs.phase_k3),
+           "K4": ("lj_cells_row", cs.phase_k4), "K9": ("lj_cells_zb", cs.phase_k9)}
 
 
-def full_width_inputs():
+def full_width_inputs(kernels):
     """The calls to time on the full-width 1CLJ start state: {key: (fn,
-    plain, args, kw)}."""
-    from ls1_mardyn_tpu_torch.ops import cuda_lj
+    plain, args, kw, walk options)} for the kernels selected."""
+    import functools
+
+    from ls1_mardyn_tpu_torch.ops import cuda_lj, cuda_lj_variants
 
     calls = {}
     sim = cs.make_sim(2, "cuda")
@@ -48,61 +69,136 @@ def full_width_inputs():
     rsim = sim.engine.sim
     lj = dict(eps24=rsim.eps24, sig2=rsim.sig2, shift6=rsim.shift6, rc2=rsim.rc2)
     r4 = rsim.state.planes[:, :, :4, :]
-    kw = dict(dims=rsim.spec.dims, cap=rsim.spec.cap, cell_len=rsim.cell_len, **lj)
-    calls["K1"] = (cuda_lj.lj_cell_forces, cuda_lj.lj_cell_forces_reference,
-                   (r4,), dict(kw, compute_macro=False))
-    calls["K3 on K1's grid"] = (cuda_lj.lj_cell_forces_cw,
-                                cuda_lj.lj_cell_forces_cw_reference,
-                                (r4.contiguous(),), dict(kw, compute_macro=False))
-    gen = cs.make_sim(2, "cuda", force_mode="pallas")
-    gen.engine.prepare_start()
-    path = gen.engine._force_fn
-    r_i, _ = path.layout(gen.engine.mol)
-    calls["K3"] = (cuda_lj.lj_cell_forces_cw, cuda_lj.lj_cell_forces_cw_reference,
-                   (r_i,), dict(dims=path.spec.dims, cap=path.spec.cap,
-                                cell_len=path.spec.cell_len, eps24=path.eps24,
-                                sig2=path.sig2, shift6=path.shift6, rc2=path.rc2))
-    del sim, gen
+    dims, cap = rsim.spec.dims, rsim.spec.cap
+    kw = dict(dims=dims, cap=cap, cell_len=rsim.cell_len, **lj)
+    fast = dict(kw, compute_macro=False)
+    if "K1" in kernels:
+        calls["K1"] = (cuda_lj.lj_cell_forces, cuda_lj.lj_cell_forces_reference,
+                       (r4,), fast, {})
+    if "K3" in kernels:
+        calls["K3 on K1's grid"] = (cuda_lj.lj_cell_forces_cw,
+                                    cuda_lj.lj_cell_forces_cw_reference,
+                                    (r4.contiguous(),), fast, {})
+    if "K4" in kernels:
+        r_i, r_j = rsim._row_views(r4)
+        calls["K4 on K1's grid"] = (
+            cuda_lj.lj_cell_forces_row, cuda_lj.lj_cell_forces_row_reference,
+            (r_i, r_j), dict(dims=dims, cap=cap, box=rsim.box, local_coords=True,
+                             compute_macro=False, **lj),
+            dict(j_cells=cuda_lj._row_j_cells(r_j, dims=dims, cap=cap,
+                                              box=rsim.box, local_coords=True)))
+    if "K9" in kernels:
+        V = cuda_lj_variants
+        for key, gram in (("K9", False), ("K9 gram", True)):
+            calls[key] = (functools.partial(V.lj_cell_forces_zb, gram=gram),
+                          functools.partial(V.lj_cell_forces_zb_reference,
+                                            gram=gram),
+                          (r4,), fast, dict(gram=gram))
+    if "K3" in kernels or "K4" in kernels:
+        gen = cs.make_sim(2, "cuda", force_mode="pallas")
+        gen.engine.prepare_start()
+        path = gen.engine._force_fn
+        r_i, _ = path.layout(gen.engine.mol)
+        gkw = dict(dims=path.spec.dims, cap=path.spec.cap, eps24=path.eps24,
+                   sig2=path.sig2, shift6=path.shift6, rc2=path.rc2)
+        if "K3" in kernels:
+            calls["K3"] = (cuda_lj.lj_cell_forces_cw,
+                           cuda_lj.lj_cell_forces_cw_reference, (r_i,),
+                           dict(gkw, cell_len=path.spec.cell_len), {})
+        if "K4" in kernels:
+            r_j = path.x_halo(r_i)
+            calls["K4"] = (
+                cuda_lj.lj_cell_forces_row, cuda_lj.lj_cell_forces_row_reference,
+                (r_i, r_j), dict(gkw, box=path.spec.box, local_coords=True),
+                dict(j_cells=cuda_lj._row_j_cells(
+                    r_j, dims=path.spec.dims, cap=path.spec.cap,
+                    box=path.spec.box, local_coords=True)))
+        del gen
+    del sim
     return calls
+
+
+def gram_order(tag, smi):
+    """K9 gram of the variant in use against its plain version on the
+    card, on the CPU and in f64 (see the module docstring)."""
+    import torch
+
+    from ls1_mardyn_tpu_torch.ops import cuda_lj_variants as V
+
+    def rel(a, b, m):
+        return f"{float((a.double().cpu() - b.double().cpu()).abs().max()) / m:.2e}"
+
+    for cap in (32, 64):
+        sim = cs.cut_sim(cap, torch.float32, "cuda", nd=8)
+        cases = {"state": (sim.state.planes[:, :, :4, :], sim.spec.dims,
+                           sim.cell_len, dict(eps24=sim.eps24, sig2=sim.sig2,
+                                              shift6=sim.shift6, rc2=sim.rc2))}
+        for name, r8 in cs.check_scenes(cap, torch.float32, "cuda").items():
+            cases[name] = (r8[:, :, :4, :], (6, 6, 6), (cs.SCENE_CL,) * 3,
+                           cs.SCENE_LJ)
+        for name, (r4, dims, cl, lj) in cases.items():
+            kw = dict(dims=dims, cap=cap, cell_len=cl, gram=True, **lj)
+            k = V.lj_cell_forces_zb(r4, **kw)[0]
+            pg = V.lj_cell_forces_zb_reference(r4, **kw)[0]
+            pc = V.lj_cell_forces_zb_reference(r4.cpu(), **kw)[0]
+            f64 = V.lj_cell_forces_zb_reference(r4.double(), **kw)[0]
+            m = float(f64.abs().max())
+            cs.say("gram_order", variant=tag, cap=cap, scene=name,
+                   kernel_vs_plain_card=rel(k, pg, m),
+                   kernel_vs_plain_cpu=rel(k, pc, m),
+                   plain_card_vs_cpu=rel(pg, pc, m), kernel_vs_f64=rel(k, f64, m),
+                   plain_card_vs_f64=rel(pg, f64, m),
+                   plain_cpu_vs_f64=rel(pc, f64, m), gpu=repr(smi))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variant", action="append", default=[],
                     help="TAG=DIR[:FLAGS] (tools/kernel_variants.py)")
+    ap.add_argument("--kernels", default="K1,K3,K4,K9")
+    ap.add_argument("--no-check", action="append", default=[], metavar="TAG")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--walk", action="store_true")
+    ap.add_argument("--gram-order", action="store_true")
     args = ap.parse_args()
+    kernels = [k for k in args.kernels.split(",") if k]
     smi = cs.phase_device()
     import ls1_mardyn_tpu_torch  # noqa: F401  (precision flags)
 
     libs = kv.build(kv.parse(args.variant, ROOT / "ls1_mardyn_tpu_torch" / "csrc"),
-                    LIBS)
+                    [KERNELS[k][0] for k in kernels])
     for tag, lib in libs.items():
+        if tag in args.no_check:
+            continue
         kv.use(lib)
         cs.say("check", variant=tag)
-        cs.phase_k1("cuda")
-        cs.phase_k3("cuda")
-    calls = full_width_inputs()
+        for k in kernels:
+            KERNELS[k][1]("cuda")
+    if args.gram_order:
+        for tag, lib in libs.items():
+            kv.use(lib)
+            gram_order(tag, smi)
+    calls = full_width_inputs(kernels)
     if args.walk:
-        for key, (_, _, a, kw) in calls.items():
+        for key, (_, _, a, kw, wkw) in calls.items():
+            cl = kw.get("cell_len", (0.0,) * 3)
             for step, cull, split in (("a", False, False), ("b", True, False),
                                       ("c", True, True)):
                 cs.say("walk", state=key, step=step,
                        walk=json.dumps(cs.lj_warp_walk(
-                           a[0], kw["dims"], kw["cap"], kw["cell_len"],
-                           kw["rc2"], cull=cull, split=split)))
+                           a[0], kw["dims"], kw["cap"], cl, kw["rc2"],
+                           cull=cull, split=split, **wkw)))
     times = {tag: {key: [] for key in calls} for tag in libs}
     order = list(libs) + list(libs)[::-1]
     for tag in order:
         kv.use(libs[tag])
-        for key, (fn, _, a, kw) in calls.items():
+        for key, (fn, _, a, kw, _) in calls.items():
             times[tag][key].append(cs.cuda_ms(lambda: fn(*a, **kw), args.reps))
     ref = {key: plain(*a, **dict(kw, compute_macro=True))
-           for key, (_, plain, a, kw) in calls.items()}
+           for key, (_, plain, a, kw, _) in calls.items()}
     for tag in libs:
         kv.use(libs[tag])
-        for key, (fn, _, a, kw) in calls.items():
+        for key, (fn, _, a, kw, _) in calls.items():
             rel = max(cs.rel_errors(fn(*a, **dict(kw, compute_macro=True)),
                                     ref[key]))
             cs.check(rel <= 1e-5, f"{tag} {key}: rel err {rel}")
