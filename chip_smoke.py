@@ -47,12 +47,16 @@ non-zero and never prints the result line):
   K6       dense multi-site forces vs plain (limits as K5): the mixture
            at cap 32 and 160, the screened scene, explicit y + z halo
            rows (bit-identical to the wrapped result)
-  K7       lane-major-j forces vs plain (K4's, cell-local) on the K3
-           cells, cap 32 and 64, f32 and f64 (limits as K1), with the
-           reduction per row and per i slot (defer)
+  K7       K4's function in cell-local mode (the TPU's lane-major-j
+           kernel) vs plain on the K3 cells and K1's sparse, full and
+           near-rc scenes, cap 32 and 64, f32 and f64 (limits as K1), with
+           in-cutoff counts as K1; defer=True and False bit-identical;
+           cap 1024 agrees and cap 1056 raises
   K8       Newton-3rd-law forces vs plain on the cut RMM state read in
-           place and on 3x3x3 cells (the smallest grid it takes); against
-           K1 reported
+           place, on 3x3x3 cells (the smallest grid it takes) and on K1's
+           sparse, full and near-rc scenes, with each case's unordered
+           in-cutoff count equal to the plain version's; against K1
+           reported
   K9       K1's function (the TPU's z-banded kernel) vs plain, direct
            and Gram r^2, on the cut RMM state's 8-plane tensor read in
            place (sentinel fill) and on K1's sparse, full and near-rc
@@ -88,9 +92,10 @@ non-zero and never prints the result line):
   times    K1..K10 against their plain versions at the shapes their
            paths gave them (CUDA events), and each kernel's bound (its
            in-cutoff count checked once against the plain version's); K1,
-           K3, K4 and K9 (zb and gram) also report what their warps walk
-           (j slots staged, the share culled, j iterations;
-           lj_warp_walk) and their ptxas registers and spills; K3 and K4
+           K3, K4, K7, K8 (full and half shell) and K9 (zb and gram) also
+           report what their warps walk (j slots staged, the share culled,
+           j iterations; lj_warp_walk) and their ptxas registers and
+           spills; K3 and K4
            also against plain on K1's grid (56,60,60), K7-K10 on K1's
            state beside K1; the multi-site plain versions on a 2-row z
            slab, and at full width when that extrapolates to under 60 s;
@@ -629,35 +634,73 @@ def phase_k4(device):
 
 
 def phase_k7(device):
-    """K7 vs its plain version (K4's, cell-local mode) with the reduction
-    per neighbour row and per i slot (defer)."""
+    """K7 vs its plain version (K4's, cell-local mode, one x halo cell) on
+    the K3 cells and the check scenes (sparse, full, near-rc), with each
+    case's in-cutoff count equal to the plain version's; `defer` (where
+    the TPU kernel reduced over its j lanes) changes nothing, so both
+    values must give bit-identical results.  The warp skeleton takes
+    every cap the wrappers take: cap 1024 on 3^3 cells agrees, cap 1056
+    raises."""
     from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces_row_reference
     from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import lj_cell_forces_lanej
+
+    def run(tag, r_i, dims, cap, cl, lj, errs, counts):
+        r_j = x_halo(r_i, dims[0], cap)
+        kw = dict(dims=dims, cap=cap, box=tuple(c * d for c, d in zip(cl, dims)),
+                  **lj)
+        a = lj_cell_forces_lanej(r_i, r_j, defer=True, **kw)
+        b = lj_cell_forces_lanej(r_i, r_j, defer=False, **kw)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"K7 {tag} ({r_i.dtype}, cap {cap}): defer changes the result")
+        errs[tag] = max(rel_errors(a, lj_cell_forces_row_reference(
+            r_i, r_j, local_coords=True, **kw)))
+        counts[tag] = check_counts(f"K7 {tag} ({r_i.dtype}, cap {cap})", r_i, r_j,
+                                   kernel="lanej", dims=dims, cap=cap,
+                                   box=kw["box"], rc2=lj["rc2"])
 
     for dtype, lim in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         for cap in (32, 64):
             r_i, cl, lj = cut_planes(cap, dtype, device)
             nd = r_i.shape[0]
-            r_j = x_halo(r_i, nd, cap)
-            kw = dict(dims=(nd,) * 3, cap=cap, box=tuple(c * nd for c in cl), **lj)
-            ref = lj_cell_forces_row_reference(r_i, r_j, local_coords=True, **kw)
-            errs = {f"defer={d}": max(rel_errors(
-                lj_cell_forces_lanej(r_i, r_j, defer=d, **kw), ref))
-                for d in (True, False)}
+            errs, counts = {}, {}
+            run("seed", r_i, (nd,) * 3, cap, cl, lj, errs, counts)
+            for name, r8 in check_scenes(cap, dtype, device).items():
+                run(name, r8[:, :, :4, :].contiguous(), (6, 6, 6), cap,
+                    (SCENE_CL,) * 3, SCENE_LJ, errs, counts)
             say("K7", dtype=str(dtype).split(".")[1], cap=cap, grid=(nd,) * 3,
                 rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
-                limit=lim)
+                inside_ordered=json.dumps(counts), counts_equal=True,
+                defer_bit_identical=True, limit=lim)
             check(max(errs.values()) <= lim,
                   f"K7 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
-    say("K7", launches=lj_cell_forces_lanej.launches)
+    # the cap limit is the wrappers' (<= 1024), not shared memory
+    big = lj_scene((3, 3, 3), 1024, SCENE_CL,
+                   np.random.default_rng(1).integers(0, 40, size=(3, 3, 3)),
+                   seed=1, dtype=torch.float64, device=device)
+    errs, counts = {}, {}
+    run("cap1024", big, (3, 3, 3), 1024, (SCENE_CL,) * 3, SCENE_LJ, errs, counts)
+    check(max(errs.values()) <= 1e-12, f"K7 at cap 1024: {errs}")
+    try:
+        r = torch.zeros((3, 3, 4, 3 * 1056), dtype=torch.float64, device=device)
+        lj_cell_forces_lanej(r, x_halo(r, 3, 1056), dims=(3, 3, 3), cap=1056,
+                             box=(3 * SCENE_CL,) * 3, **SCENE_LJ)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "K7 took cap 1056")
+    say("K7", cap1024=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
+        inside_ordered_cap1024=json.dumps(counts), cap1056_raises=raised,
+        launches=lj_cell_forces_lanej.launches)
 
 
 def phase_k8(device):
     """K8 vs its plain version on the RMM state's planes read in place,
-    and on 3x3x3 cells (the smallest grid it takes) as a periodic grid
-    of their own; K8 against K1 on the same state is reported (each pair
-    once against each pair from both sides: two roundings of r^2, so a
-    pair at the cutoff may count on one side only)."""
+    on 3x3x3 cells (the smallest grid it takes) as a periodic grid of
+    their own, and on the check scenes (sparse, full, near-rc), with each
+    case's unordered in-cutoff count equal to the plain version's; K8
+    against K1 on the same state is reported (each pair once against each
+    pair from both sides: two roundings of r^2, so a pair at the cutoff
+    may count on one side only)."""
     from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces
     from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import (
         lj_cell_forces_n3l, lj_cell_forces_n3l_reference)
@@ -666,19 +709,27 @@ def phase_k8(device):
         for cap in (32, 64):
             sim = cut_sim(cap, dtype, device)
             r4 = sim.state.planes[:, :, :4, :]
-            cases = {"state": (r4, sim.spec.dims),
-                     "3x3x3": (sub_block(r4, cap, 3, 3, 3), (3, 3, 3))}
-            errs = {}
-            for tag, (r, dims) in cases.items():
-                kw = dict(dims=dims, cap=cap, cell_len=sim.cell_len, eps24=sim.eps24,
-                          sig2=sim.sig2, shift6=sim.shift6, rc2=sim.rc2)
+            lj = dict(eps24=sim.eps24, sig2=sim.sig2, shift6=sim.shift6,
+                      rc2=sim.rc2)
+            cases = {"state": (r4, sim.spec.dims, sim.cell_len, lj),
+                     "3x3x3": (sub_block(r4, cap, 3, 3, 3), (3, 3, 3),
+                               sim.cell_len, lj)}
+            for name, r8 in check_scenes(cap, dtype, device).items():
+                cases[name] = (r8[:, :, :4, :], (6, 6, 6), (SCENE_CL,) * 3,
+                               SCENE_LJ)
+            errs, counts = {}, {}
+            for tag, (r, dims, cl, ljc) in cases.items():
+                kw = dict(dims=dims, cap=cap, cell_len=cl, **ljc)
                 errs[tag] = max(rel_errors(lj_cell_forces_n3l(r, **kw),
                                            lj_cell_forces_n3l_reference(r, **kw)))
-            kw = dict(dims=sim.spec.dims, cap=cap, cell_len=sim.cell_len,
-                      eps24=sim.eps24, sig2=sim.sig2, shift6=sim.shift6, rc2=sim.rc2)
+                counts[tag] = check_counts(f"K8 {tag} ({dtype}, cap {cap})", r,
+                                           kernel="n3l", dims=dims, cap=cap,
+                                           cell_len=cl, rc2=ljc["rc2"])
+            kw = dict(dims=sim.spec.dims, cap=cap, cell_len=sim.cell_len, **lj)
             vs_k1 = rel_errors(lj_cell_forces_n3l(r4, **kw), lj_cell_forces(r4, **kw))
             say("K8", dtype=str(dtype).split(".")[1], cap=cap, grid=sim.spec.dims,
                 rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
+                inside_unordered=json.dumps(counts), counts_equal=True,
                 limit=lim, vs_K1=json.dumps([f"{v:.2e}" for v in vs_k1]))
             check(max(errs.values()) <= lim,
                   f"K8 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
@@ -1434,7 +1485,8 @@ def ptxas_report(name):
     csrc/<name>.cu, read from the ptxas report (nvcc -Xptxas -v) that
     ops/_build.py keeps beside the library: {"f32"|"f64"|entry: {...}};
     a warp-skeleton kernel (csrc/lj_warp.cuh) as "f32 macro vi gram"
-    with its template flags, e.g. "f32 100" (u6/virial, no Vi, no Gram)."""
+    with its template flags, e.g. "f32 100" (u6/virial, no Vi, no Gram),
+    K8's (csrc/lj_cells_n3l.cu) as "f32 macro"."""
     import re
 
     from ls1_mardyn_tpu_torch.ops import _build
@@ -1443,10 +1495,11 @@ def ptxas_report(name):
     for ln in _build.build_log(name).splitlines():
         if "Compiling entry function" in ln:
             ent = ln.split("'")[1]
-            warp = re.search(r"warp_cells_kernelI([fd])((?:Lb[01]E){3})", ent)
+            warp = re.search(r"(?:warp_cells|n3l)_kernelI([fd])((?:Lb[01]E)+)",
+                             ent)
             if warp:
                 cur = ("f32 " if warp.group(1) == "f" else "f64 ") + "".join(
-                    re.findall(r"Lb([01])E", warp.group(2)))
+                    re.findall(r"Lb([01])E", warp.group(2))[:3])
             else:
                 cur = "f32" if "IfN" in ent else ("f64" if "IdN" in ent else ent)
             out[cur] = {}
@@ -1612,11 +1665,13 @@ _BOUND_CHECKED = {}
 
 
 def lj_warp_walk(r_i, dims, cap, cell_len, rc2, cull=True, split=True,
-                 j_cells=None, gram=False):
-    """What the warp skeleton of K1, K3, K4 and K9 (csrc/lj_warp.cuh)
-    walks on this state, counted here with torch from the same data: per
-    warp (32 slots of an i cell holding n_i valid ones), the valid j slots
-    of its 27 neighbour cells staged, those kept by the box cull
+                 j_cells=None, gram=False, half=False):
+    """What the warp skeleton of K1, K3, K4, K7, K8 and K9
+    (csrc/lj_warp.cuh) walks on this state, counted here with torch from
+    the same data: per warp (32 slots of an i cell holding n_i valid
+    ones), the valid j slots of its 27 neighbour cells (with `half` K8's
+    half shell: the own cell's slots above the warp's first valid i slot
+    and the 13 forward cells) staged, those kept by the box cull
     (boxdist2 < rc^2, rounded as the kernel rounds it; with `gram` below
     the Gram form's threshold rc^2 + kappa (max s_i + s_j); all with
     cull=False), and the j iterations walked, with the warp split in two
@@ -1628,8 +1683,9 @@ def lj_warp_walk(r_i, dims, cap, cell_len, rc2, cull=True, split=True,
     earlier design steps without the cull or the split
     (tools/lj_kernel_times.py --walk); the kernel has both.  Returns the
     totals and the means per warp with a valid i (the block skeleton
-    walked 27 * cap iterations per i slot)."""
+    walked 27 * cap iterations per i slot, K8's 13.5 * cap on average)."""
     from ls1_mardyn_tpu_torch.ops.cuda_lj import _cells, _local_j_cells
+    from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import FORWARD
 
     nx, ny, nz = dims
     nch = cap // 32
@@ -1650,23 +1706,31 @@ def lj_warp_walk(r_i, dims, cap, cell_len, rc2, cull=True, split=True,
         s_i = pw[..., 0] * pw[..., 0] + pw[..., 1] * pw[..., 1] \
             + pw[..., 2] * pw[..., 2]
         smax = torch.where(vw, s_i, 0.0).amax(4)[..., None]
-    for dz in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            for dx in (-1, 0, 1):
-                pj, vj = j_cells(0, nz, (dz, dy, dx))
-                pj = pj[:, :, :, None]  # [z, y, x, 1, cap, 3]
-                a = lo[:, :, :, :, None] - pj
-                b = pj - hi[:, :, :, :, None]
-                g = torch.where(a > 0, a, torch.where(b > 0, b, 0.0))
-                bd2 = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] \
-                    + g[..., 2] * g[..., 2]
-                if gram:
-                    s_j = pj[..., 0] * pj[..., 0] + pj[..., 1] * pj[..., 1] \
-                        + pj[..., 2] * pj[..., 2]
-                    thr = rc2 + kappa * (smax + s_j)
-                vj = vj[:, :, :, None]
-                staged += vj.sum(-1)
-                kept += (vj & ((bd2 < thr) | (not cull))).sum(-1)
+    if half:
+        # the first valid i slot of each warp; own-cell j slots above it
+        lane = torch.arange(32, device=pos.device)
+        first = torch.where(vw, lane, 32).amin(-1)
+        smin = first + 32 * torch.arange(nch, device=pos.device)
+        above = torch.arange(cap, device=pos.device) > smin[..., None]
+    offsets = ((0, 0, 0),) + FORWARD if half else [
+        (dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    for off in offsets:
+        pj, vj = j_cells(0, nz, off)
+        pj = pj[:, :, :, None]  # [z, y, x, 1, cap, 3]
+        a = lo[:, :, :, :, None] - pj
+        b = pj - hi[:, :, :, :, None]
+        g = torch.where(a > 0, a, torch.where(b > 0, b, 0.0))
+        bd2 = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] \
+            + g[..., 2] * g[..., 2]
+        if gram:
+            s_j = pj[..., 0] * pj[..., 0] + pj[..., 1] * pj[..., 1] \
+                + pj[..., 2] * pj[..., 2]
+            thr = rc2 + kappa * (smax + s_j)
+        vj = vj[:, :, :, None]
+        if half and off == (0, 0, 0):
+            vj = vj & above
+        staged += vj.sum(-1)
+        kept += (vj & ((bd2 < thr) | (not cull))).sum(-1)
     ways = torch.where((n_i <= 16) & split, 2, 1)
     iters = (kept // 32) * (32 // ways) + (kept % 32 + ways - 1) // ways
     live = n_i > 0
@@ -1679,7 +1743,7 @@ def lj_warp_walk(r_i, dims, cap, cell_len, rc2, cull=True, split=True,
             "j_iterations_per_warp": round(float(iters[live].sum()) / nw, 1),
             "j_kept_per_warp": round(float(kept[live].sum()) / nw, 1),
             "split_share": round(float(((ways == 2) & live).sum()) / nw, 4),
-            "block_skeleton_iterations_per_warp": 27 * cap}
+            "block_skeleton_iterations_per_warp": 13.5 * cap if half else 27 * cap}
 
 
 def lj_bound(r_i, dims, cap, lj, out_planes, j_elems, nbytes=None):
@@ -1897,7 +1961,9 @@ def variant_times(rsim, r4, smi, lj_times):
     """K7-K10 beside their plain versions on the RMM state K1 was timed
     on (K1's grid; K7 with a copied i view and its x halo, K10 on the
     state packed into pencils).  They compute K1's physics, so K1's
-    bound; `ms` without u6/virial, as the RMM path runs most steps."""
+    bound; `ms` without u6/virial, as the RMM path runs most steps.  K7,
+    K8 and K9 also report what their warps walk (lj_warp_walk; K8 by the
+    full and the half shell) and their ptxas report."""
     import functools
 
     from ls1_mardyn_tpu_torch.ops import cuda_lj, cuda_lj_variants as V
@@ -1920,11 +1986,9 @@ def variant_times(rsim, r4, smi, lj_times):
     k1_ms = cuda_ms(lambda: cuda_lj.lj_cell_forces(
         r4, **dict(local, compute_macro=False)), 10)
     cases = (
-        ("K7", functools.partial(V.lj_cell_forces_lanej, defer=True), row_ref,
-         (r_i, r_j), dict(dims=dims, cap=cap, box=rsim.spec.box, **lj),
-         dict(j_elems=r_j.numel()),
-         {"defer_off": (functools.partial(V.lj_cell_forces_lanej, defer=False),
-                        row_ref)}),
+        ("K7", V.lj_cell_forces_lanej, row_ref, (r_i, r_j),
+         dict(dims=dims, cap=cap, box=rsim.spec.box, **lj),
+         dict(j_elems=r_j.numel()), {}),
         ("K8", V.lj_cell_forces_n3l, V.lj_cell_forces_n3l_reference, (r4,), local,
          {}, {}),
         ("K9", V.lj_cell_forces_zb, V.lj_cell_forces_zb_reference, (r4,), local, {},
@@ -1945,6 +2009,19 @@ def variant_times(rsim, r4, smi, lj_times):
             e = max(rel_errors(f(*args, **kw), g(*args, **kw)))
             check(e <= 1e-5, f"{key} {mode} at its path's shape: rel err {e}")
             more["rel_err_" + mode] = "%.3e" % e
+        if key == "K7":
+            more.update(walk=json.dumps(lj_warp_walk(
+                r_i, dims, cap, rsim.cell_len, rsim.rc2,
+                j_cells=cuda_lj._row_j_cells(r_j, dims=dims, cap=cap,
+                                             box=rsim.spec.box,
+                                             local_coords=True))),
+                ptxas=json.dumps(ptxas_report("lj_cells_lanej")))
+        if key == "K8":
+            more.update(walk=json.dumps(lj_warp_walk(
+                r4, dims, cap, rsim.cell_len, rsim.rc2)),
+                walk_half=json.dumps(lj_warp_walk(
+                    r4, dims, cap, rsim.cell_len, rsim.rc2, half=True)),
+                ptxas=json.dumps(ptxas_report("lj_cells_n3l")))
         if key == "K9":
             more.update(walk=json.dumps(lj_warp_walk(
                 r4, dims, cap, rsim.cell_len, rsim.rc2)),

@@ -11,161 +11,300 @@
 //
 // Traversal: the half shell.  A cell meets its own slots with j > i and
 // the 13 forward neighbour cells (dz > 0, or dz = 0 and dy > 0, or
-// dz = dy = 0 and dx = +1), and writes the reaction -F_ij to the j slot.
+// dz = dy = 0 and dx = +1), and adds the reaction -F_ij to the j slot.
 // The TPU kernel takes 5 forward (dz, dy) rows with a double-sided own
 // row and folds a per-row j accumulator (jacc) back in XLA; both cover
 // every pair once.  Needs nx, ny, nz >= 3: with two cells on an axis the
 // offsets +1 and -1 reach the same cell and the forward half is no half.
 //
-// Reactions: atomics, not a folded accumulator.  f64 atomicAdd is native
-// on sm_90, so one skeleton serves f32 and f64; the wrapper zeroes the
-// output and no scratch the size of the state is allocated or folded.
-// Within a block the j reactions of one neighbour cell go to shared
-// memory first: thread s walks the j slots from slot s on (a skewed
-// order), so the threads of a warp add to different slots at each step
-// and the shared atomics do not collide; then one global atomicAdd per
-// j slot and axis.  The price is the order of the sums: it changes from
-// run to run, so f agrees with the plain version to rounding, not bit for
-// bit.
+// The kernel runs on the warp skeleton of lj_warp.cuh: a warp owns a
+// 32-slot i chunk (i compaction, the half-warp split for n_i <= 16) and
+// stages the valid j slots of its 14 cells that lie within rc of the
+// bounding box of its valid i slots into a 64-entry ring (ballot + popc),
+// 32 at a time.  What the half shell adds:
+//   * the half shell in the pair test: an own-cell entry carries its slot
+//     id, a forward-cell entry 2 * cap (above every slot id), so the test
+//     j.w > me.w keeps j > i in the own cell and every forward pair, one
+//     compare as K1's j.w != me.w (also for cap 64, where two warps share
+//     the own cell).  Own-cell j slots at or below the warp's first valid
+//     i slot are culled while staging;
+//   * reactions by register rotation: in a full round of 32 entries each
+//     lane holds one entry (of its half, with the split) and its reaction
+//     sums in registers, meets its i, and passes both one lane on by
+//     shuffles, so after 32 (16) steps every i has met every entry of its
+//     half and no two lanes ever add to the same sum.  Then the lane that
+//     holds an entry adds its reaction to f with global atomics (f32 and
+//     f64 are native on sm_90), skipping a reaction that is exactly 0; the
+//     ring keeps the entry's offset in f beside it.  The last, partial
+//     round is walked skewed: at step b the lane of rank l in its half
+//     takes the half's entry of rank (l + b) mod m and adds the reaction
+//     to the entry's sums in shared memory with atomics; then one lane an
+//     entry adds them to f.  Nothing assumes that the lanes of a warp run
+//     in lockstep.  The i forces go to f by atomics at the end of the
+//     warp, so the wrapper zeroes f;
+//   * u6 and the virial counted once per pair (block_macro, scale 1).
+// The atomics make the order of the sums, and so the last bits of f, vary
+// from run to run: f agrees with the plain version to rounding.
 //
-// What bounds it: arithmetic, as the double-sided kernels (lj_pair.cuh),
-// with half their pair lanes (14 of 27 cells, the own cell halved) and
-// three shared atomics per pair inside the cutoff.
+// What bounds it (H100, PERF.md): the walk, as for K1 -- half the j
+// iterations (151 a warp on K1's main state, 283 by the full shell) at
+// ~1.5x the cost each (seven shuffles a step) -- plus the global atomics
+// of the flushes.  Measured and dropped: the skewed walk for the full
+// rounds too (~2.1x a full-shell iteration, 27% slower: its 16-byte
+// entry load is no broadcast, and three shared atomics a step), and the
+// rotation of the reactions alone with the entries loaded skewed (2%
+// slower).
 //
-// Design (the first, plain one; see PERF.md for its times): the block
-// and staging of lj_pair.cuh (cpb = 128/cap cells, one thread per i
-// slot), the neighbour cell staged with its image shift folded in
-// (r_j + shift rounded once, as the plain version forms it) beside three
-// reaction planes.
+// Rounding: r^2 is formed without FMA from r_i - (r_j + shift), as the
+// plain version (lj_cell_forces_n3l_reference) forms it, so both apply
+// the cutoff to the same pairs.
 
-#include "lj_pair.cuh"
+#include "lj_warp.cuh"
 
 namespace {
 
-using ljk::add_rn;
-using ljk::Grid;
-using ljk::LJ;
-using ljk::wrap;
+using ljw::FULL;
+using ljw::J4;
+using ljw::RING;
+using ljw::WARPS;
 
+// Per warp, beside the ring of staged j: the reaction sums of each entry
+// and the offset of its j slot in f (plane x; y and z at +W and +2W).
+template <typename T>
+struct Reactions {
+  T x[RING], y[RING], z[RING];
+  int o[RING];
+};
+
+// The pair of i `me` and a staged j if it lies inside the cutoff and j
+// is a later slot of the own cell or a slot of a forward cell: its terms
+// added to `a` and the force on i returned in (px, py, pz).
 template <typename T, bool MACRO>
-__global__ void n3l_kernel(const T* __restrict__ r, int P, T* __restrict__ f,
-                           T* __restrict__ part, Grid gd, T clx, T cly, T clz,
-                           LJ<T> lj) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);  // [cpb][7][cap]
-
-  const int nx = gd.nx, ny = gd.ny, nz = gd.nz, cap = gd.cap;
-  const int t = threadIdx.x;
-  const int g = t / cap;
-  const int s = t - g * cap;
-  const long long ncells = (long long)nx * ny * nz;
-  const long long cell = (long long)blockIdx.x * gd.cpb + g;
-  const bool active = cell < ncells;
-  const long long W = (long long)nx * cap;
-  int cx = 0, cy = 0, cz = 0;
-  T xi = T(0), yi = T(0), zi = T(0);
-  bool vi = false;
-  if (active) {
-    cx = (int)(cell % nx);
-    const long long q = cell / nx;
-    cy = (int)(q % ny);
-    cz = (int)(q / ny);
-    const T* p = r + ((long long)cz * ny + cy) * P * W + (long long)cx * cap + s;
-    xi = p[0];
-    yi = p[W];
-    zi = p[2 * W];
-    vi = p[3 * W] > T(0.5);
-  }
-  T* sx = sm + (long long)g * 7 * cap;
-  T* sy = sx + cap;
-  T* sz = sy + cap;
-  T* sv = sz + cap;
-  T* rx = sv + cap;  // reactions on the staged j slots
-  T* ry = rx + cap;
-  T* rz = ry + cap;
-
-  T fx = T(0), fy = T(0), fz = T(0), u6 = T(0), vir = T(0);
-  // m = 9*(dz+1) + 3*(dy+1) + (dx+1): 13 is the own cell, 14..26 the
-  // forward half
-  for (int m = 13; m < 27; ++m) {
-    const int dz = m / 9 - 1, dy = (m / 3) % 3 - 1, dx = m % 3 - 1;
-    int jx = 0, jy = 0, jz = 0;
-    if (active) {
-      jx = wrap(cx + dx, nx);
-      jy = wrap(cy + dy, ny);
-      jz = wrap(cz + dz, nz);
-      const T* p = r + ((long long)jz * ny + jy) * P * W + (long long)jx * cap + s;
-      sx[s] = add_rn(p[0], T(dx) * clx);
-      sy[s] = add_rn(p[W], T(dy) * cly);
-      sz[s] = add_rn(p[2 * W], T(dz) * clz);
-      sv[s] = p[3 * W];
-      rx[s] = T(0);
-      ry[s] = T(0);
-      rz[s] = T(0);
+__device__ __forceinline__ bool half_pair(const J4<T>& me, const J4<T>& j,
+                                          const ljk::LJ<T>& lj, ljk::Acc<T>& a,
+                                          T& px, T& py, T& pz) {
+  const T ddx = me.x - j.x;
+  const T ddy = me.y - j.y;
+  const T ddz = me.z - j.z;
+  const T dr2 = ljk::norm2(ddx, ddy, ddz);
+  if (dr2 < lj.rc2 && j.w > me.w) {
+    T fac, u6;
+    ljk::lj_term(dr2, lj.eps24, lj.sig2, fac, u6);
+    px = fac * ddx;
+    py = fac * ddy;
+    pz = fac * ddz;
+    a.fx += px;
+    a.fy += py;
+    a.fz += pz;
+    if (MACRO) {
+      a.u6 += u6 + lj.shift6;
+      a.vir += fac * dr2;
     }
-    __syncthreads();
-    if (active && vi) {
-      // own cell: j = s+1 .. cap-1; forward cells: all cap slots from s on
-      const bool own = m == 13;
-      const int n = own ? cap - 1 - s : cap;
-      int k = own ? s + 1 : s;
-      for (int kk = 0; kk < n; ++kk) {
-        const T ddx = xi - sx[k];
-        const T ddy = yi - sy[k];
-        const T ddz = zi - sz[k];
-        const T dr2 = ljk::norm2(ddx, ddy, ddz);
-        if (sv[k] > T(0.5) && dr2 < lj.rc2) {
-          T fac, e;
-          ljk::lj_term(dr2, lj.eps24, lj.sig2, fac, e);
-          const T px = fac * ddx, py = fac * ddy, pz = fac * ddz;
-          fx += px;
-          fy += py;
-          fz += pz;
-          atomicAdd(rx + k, -px);
-          atomicAdd(ry + k, -py);
-          atomicAdd(rz + k, -pz);
-          if (MACRO) {
-            u6 += e + lj.shift6;
-            vir += fac * dr2;
+    return true;
+  }
+  return false;
+}
+
+// (x, y, z) added to the slot at o (planes W apart), unless all are 0
+template <typename T>
+__device__ __forceinline__ void add_to(T* o, long long W, T x, T y, T z) {
+  if (x != T(0) || y != T(0) || z != T(0)) {
+    atomicAdd(o, x);
+    atomicAdd(o + W, y);
+    atomicAdd(o + 2 * W, z);
+  }
+}
+
+// The last, partial round: one i `me` against the entries (tail + k) %
+// RING, k < n (n < 32), of its half (k = h, h + WAYS, ...), skewed: the
+// lane of rank l in its half takes the entry of rank (l + b) mod m of the
+// half's m at step b; the reactions go to the entries' sums by shared
+// atomics (two lanes may take one entry where m is below the lanes of a
+// half).
+template <typename T, bool MACRO, int WAYS>
+__device__ __forceinline__ void walk_skewed(const J4<T>* ring, Reactions<T>& re,
+                                            int tail, int n, const J4<T>& me,
+                                            const ljk::LJ<T>& lj,
+                                            ljk::Acc<T>& a) {
+  constexpr int S = 32 / WAYS;
+  const int lane = threadIdx.x & 31, h = lane / S, l = lane & (S - 1);
+  const int m = (n - h + WAYS - 1) / WAYS;
+  if (m <= 0) return;
+  int q = l % m;
+  for (int b = 0; b < S; ++b) {  // a compile-time bound: the loop unrolls
+    if (b >= m) break;
+    const int e = (tail + q * WAYS + h) & (RING - 1);
+    T px, py, pz;
+    if (half_pair<T, MACRO>(me, ring[e], lj, a, px, py, pz)) {
+      atomicAdd(re.x + e, -px);
+      atomicAdd(re.y + e, -py);
+      atomicAdd(re.z + e, -pz);
+    }
+    if (++q == m) q = 0;
+  }
+}
+
+// The reactions of the entries (tail + k) % RING, k < n, added to f: one
+// entry a lane.
+template <typename T>
+__device__ __forceinline__ void flush(const Reactions<T>& re, int tail, int n,
+                                      T* f, long long W) {
+  const int lane = threadIdx.x & 31;
+  if (lane < n) {
+    const int e = (tail + lane) & (RING - 1);
+    add_to(f + re.o[e], W, re.x[e], re.y[e], re.z[e]);
+  }
+}
+
+// A full round by register rotation: the lane of rank l in its half holds
+// the half's entry of rank (l + b) mod S and its reaction at step b, and
+// passes both to the lane below it; every lane of the warp takes part in
+// the shuffles, a lane without a valid i only passes them on.  Ends with
+// each entry's reaction added to f by the lane that holds it.
+template <typename T, bool MACRO, int WAYS>
+__device__ __forceinline__ void walk_rotate(const J4<T>* ring,
+                                            const Reactions<T>& re, int tail,
+                                            bool live, const J4<T>& me,
+                                            const ljk::LJ<T>& lj, ljk::Acc<T>& a,
+                                            T* f, long long W) {
+  constexpr int S = 32 / WAYS;
+  const int lane = threadIdx.x & 31, h = lane / S, l = lane & (S - 1);
+  const int src = (lane & ~(S - 1)) | ((l + 1) & (S - 1));
+  J4<T> j = ring[(tail + l * WAYS + h) & (RING - 1)];
+  T rx = T(0), ry = T(0), rz = T(0);
+  for (int b = 0; b < S; ++b) {
+    T px, py, pz;
+    if (live && half_pair<T, MACRO>(me, j, lj, a, px, py, pz)) {
+      rx -= px;
+      ry -= py;
+      rz -= pz;
+    }
+    if (b + 1 < S) {
+      j.x = __shfl_sync(FULL, j.x, src);
+      j.y = __shfl_sync(FULL, j.y, src);
+      j.z = __shfl_sync(FULL, j.z, src);
+      j.w = __shfl_sync(FULL, j.w, src);
+      rx = __shfl_sync(FULL, rx, src);
+      ry = __shfl_sync(FULL, ry, src);
+      rz = __shfl_sync(FULL, rz, src);
+    }
+  }
+  const int e = (tail + ((l + S - 1) & (S - 1)) * WAYS + h) & (RING - 1);
+  add_to(f + re.o[e], W, rx, ry, rz);
+}
+
+// Forces on every slot of r[nz, ny, P, nx*cap] into f[nz, ny, 3, nx*cap]
+// (zeroed by the caller), each pair of the half shell once.
+template <typename T, bool MACRO>
+__global__ void __launch_bounds__(WARPS * 32)
+    n3l_kernel(const T* __restrict__ r, int P, T* __restrict__ f,
+               T* __restrict__ part, ljk::Grid gd, ljk::LocalNbr<T> nbr,
+               ljk::LJ<T> lj) {
+  __shared__ J4<T> rings[WARPS][RING];
+  __shared__ Reactions<T> reacts[WARPS];
+  const int lane = threadIdx.x & 31;
+  J4<T>* ring = rings[threadIdx.x >> 5];
+  Reactions<T>& re = reacts[threadIdx.x >> 5];
+  const unsigned below = (1u << lane) - 1u;
+  const int nx = gd.nx, ny = gd.ny, nz = gd.nz, cap = gd.cap;
+  const long long W = (long long)nx * cap;
+  int cx, cy, cz, ch;
+  ljk::Acc<T> acc;
+  if (ljw::warp_cell<false>(gd, cx, cy, cz, ch)) {  // warp-uniform
+    const int s = ch * 32 + lane;
+    const T* p = r + ((long long)cz * ny + cy) * P * W + (long long)cx * cap + s;
+    const bool vi = p[3 * W] > T(0.5);
+    const unsigned vmask = __ballot_sync(FULL, vi);
+    const int ni = __popc(vmask);
+    const int rank = __popc(vmask & below);
+    if (ni > 0) {  // warp-uniform
+      const ljw::IChunk<T> c =
+          ljw::i_chunk<T, false, 1>(p, W, s, vi, vmask, ni, rank, ring);
+      const int smin = ch * 32 + c.first;  // the first valid i slot
+      int head = 0, cnt = 0;  // ring write position; staged, not walked
+      // m = 9*(dz+1) + 3*(dy+1) + (dx+1): 13 is the own cell, 14..26 the
+      // forward half
+      for (int m = 13; m < 27; ++m) {
+        const int dz = m / 9 - 1, dy = (m / 3) % 3 - 1, dx = m % 3 - 1;
+        const ljk::Stage<T> st = nbr(cx, cy, cz, dx, dy, dz);
+        const bool self = m == 13;
+        // offset in f of the cell's slot 0 (< 2^31, checked by the launch)
+        const int ob = (int)(((long long)ljk::wrap(cz + dz, nz) * ny +
+                              ljk::wrap(cy + dy, ny)) * 3 * W +
+                             (long long)ljk::wrap(cx + dx, nx) * cap);
+        for (int js = lane; js < cap; js += 32) {
+          const T* pj = st.p + js;
+          bool keep = pj[3 * st.stride] > T(0.5) && (!self || js > smin);
+          T x = T(0), y = T(0), z = T(0);
+          if (keep) {
+            x = ljk::add_rn(pj[0], st.shx);
+            y = ljk::add_rn(pj[st.stride], st.shy);
+            z = ljk::add_rn(pj[2 * st.stride], st.shz);
+            keep = c.boxdist2(x, y, z) < lj.rc2;
+          }
+          const unsigned km = __ballot_sync(FULL, keep);
+          if (keep) {
+            const int e = (head + __popc(km & below)) & (RING - 1);
+            ring[e] = J4<T>{x, y, z, self ? T(js) : T(2 * cap)};
+            re.x[e] = T(0);
+            re.y[e] = T(0);
+            re.z[e] = T(0);
+            re.o[e] = ob + js;
+          }
+          head += __popc(km);
+          cnt += __popc(km);
+          __syncwarp();
+          if (cnt >= 32) {
+            if (c.ways == 2)
+              walk_rotate<T, MACRO, 2>(ring, re, head - cnt, c.live, c.me, lj,
+                                       acc, f, W);
+            else
+              walk_rotate<T, MACRO, 1>(ring, re, head - cnt, c.live, c.me, lj,
+                                       acc, f, W);
+            cnt -= 32;
+            __syncwarp();
           }
         }
-        if (++k == cap) k = 0;
       }
+      // the last round, partial
+      if (c.live) {
+        if (c.ways == 2)
+          walk_skewed<T, MACRO, 2>(ring, re, head - cnt, cnt, c.me, lj, acc);
+        else
+          walk_skewed<T, MACRO, 1>(ring, re, head - cnt, cnt, c.me, lj, acc);
+      }
+      __syncwarp();
+      flush(re, head - cnt, cnt, f, W);
+      // the i forces: other warps add reactions to the same slots
+      T* o = f + ((long long)cz * ny + cy) * 3 * W + (long long)cx * cap + s;
+      const T fx = ljw::to_slot(acc.fx, c.ways, rank, vi);
+      const T fy = ljw::to_slot(acc.fy, c.ways, rank, vi);
+      const T fz = ljw::to_slot(acc.fz, c.ways, rank, vi);
+      add_to(o, W, fx, fy, fz);
     }
-    __syncthreads();
-    if (active && sv[s] > T(0.5)) {
-      T* o = f + ((long long)jz * ny + jy) * 3 * W + (long long)jx * cap + s;
-      atomicAdd(o, rx[s]);
-      atomicAdd(o + W, ry[s]);
-      atomicAdd(o + 2 * W, rz[s]);
-    }
-    __syncthreads();
   }
-  if (active && vi) {
-    T* o = f + ((long long)cz * ny + cy) * 3 * W + (long long)cx * cap + s;
-    atomicAdd(o, fx);
-    atomicAdd(o + W, fy);
-    atomicAdd(o + 2 * W, fz);
-  }
-  if (MACRO) ljk::block_macro(u6, vir, part, T(1));
+  if (MACRO) ljk::block_macro(acc.u6, acc.vir, part, T(1));
 }
 
 template <typename T>
 int launch(const void* r, void* f, void* part, int nx, int ny, int nz, int cap,
-           int P, double clx, double cly, double clz, double eps24, double sig2,
-           double shift6, double rc2, int macro, void* stream) {
-  const Grid gd{nx, ny, nz, cap, ljk::cells_per_block(cap)};
-  const LJ<T> lj{T(eps24), T(sig2), T(shift6), T(rc2)};
-  const unsigned blocks = (unsigned)ljk::num_blocks(nx, ny, nz, cap);
-  const int threads = gd.cpb * cap;
-  const size_t smem = (size_t)gd.cpb * 7 * cap * sizeof(T);
+           int planes, double clx, double cly, double clz, double eps24,
+           double sig2, double shift6, double rc2, int macro, void* stream) {
+  // the ring keeps j slot offsets in f as int
+  if ((long long)nz * ny * 3 * nx * cap >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const ljk::Grid gd{nx, ny, nz, cap};
+  const ljk::LocalNbr<T> nbr{(const T*)r, nx, ny, nz, cap, planes, 0,
+                             T(clx), T(cly), T(clz)};
+  const ljk::LJ<T> lj{T(eps24), T(sig2), T(shift6), T(rc2)};
+  const unsigned blocks = (unsigned)ljw::num_blocks(nx, ny, nz, cap);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (macro) {
-    n3l_kernel<T, true><<<blocks, threads, smem, st>>>(
-        (const T*)r, P, (T*)f, (T*)part, gd, T(clx), T(cly), T(clz), lj);
+    n3l_kernel<T, true><<<blocks, WARPS * 32, 0, st>>>(
+        (const T*)r, planes, (T*)f, (T*)part, gd, nbr, lj);
   } else {
-    n3l_kernel<T, false><<<blocks, threads, smem, st>>>(
-        (const T*)r, P, (T*)f, (T*)part, gd, T(clx), T(cly), T(clz), lj);
+    n3l_kernel<T, false><<<blocks, WARPS * 32, 0, st>>>(
+        (const T*)r, planes, (T*)f, (T*)part, gd, nbr, lj);
   }
   return (int)cudaGetLastError();
 }
@@ -175,7 +314,7 @@ int launch(const void* r, void* f, void* part, int nx, int ny, int nz, int cap,
 extern "C" {
 
 int lj_cells_n3l_num_blocks(int nx, int ny, int nz, int cap) {
-  return ljk::num_blocks(nx, ny, nz, cap);
+  return ljw::num_blocks(nx, ny, nz, cap);
 }
 
 int lj_cells_n3l_f32(const void* r, void* f, void* part, int nx, int ny, int nz,

@@ -23,50 +23,22 @@
 // selector matmuls and the plane-3 scalar packing are not reproduced.
 //
 // The kernel skeleton (a warp a 32-slot i chunk, box-culled and
-// ballot-compacted j slots), its design and what bounded the block
-// skeleton before it are lj_warp.cuh's; this file adds the neighbour
-// functor of the j view.  The window is +-1 cell for any hx: the halo
-// cells beyond the first are never read.
+// ballot-compacted j slots), its design, what bounded the block skeleton
+// before it, and the neighbour functor of the j view (RowNbr, shared with
+// K7's lj_cells_lanej.cu) are lj_warp.cuh's.  The window is +-1 cell for
+// any hx: the halo cells beyond the first are never read.
 
 #include "lj_warp.cuh"
 
 namespace {
-
-// The neighbour cells of the j view r_j[nz(+2), ny(+2), 4, (nx+2*hx)*cap].
-template <typename T>
-struct RowNbr {
-  const T* rj;
-  int nx, ny, nz, cap, hx, local, zhalo, yhalo;
-  T ux, uy, uz;
-  __device__ __forceinline__ ljk::Stage<T> operator()(int cx, int cy, int cz,
-                                                      int dx, int dy,
-                                                      int dz) const {
-    const long long Wj = (long long)(nx + 2 * hx) * cap;
-    const int nyj = yhalo ? ny + 2 : ny;
-    const int zr = cz + dz, yr = cy + dy;
-    const int jz = zhalo ? zr + 1 : ljk::wrap(zr, nz);
-    const int jy = yhalo ? yr + 1 : ljk::wrap(yr, ny);
-    const int jx = cx + hx + dx;
-    // image shift in units of (ux, uy, uz): the cell edges in local
-    // mode; (0, by, bz) where a row index wrapped in absolute mode
-    int mx = dx, my = dy, mz = dz;
-    if (!local) {
-      mx = 0;
-      my = yhalo ? 0 : (yr < 0 ? -1 : (yr >= ny ? 1 : 0));
-      mz = zhalo ? 0 : (zr < 0 ? -1 : (zr >= nz ? 1 : 0));
-    }
-    return {rj + ((long long)jz * nyj + jy) * 4 * Wj + (long long)jx * cap, Wj,
-            T(mx) * ux, T(my) * uy, T(mz) * uz};
-  }
-};
 
 template <typename T>
 int launch(const void* ri, const void* rj, void* f, void* part, int nx, int ny,
            int nz, int cap, int hx, int local, int zhalo, int yhalo, double ux,
            double uy, double uz, double eps24, double sig2, double shift6,
            double rc2, int macro, void* stream) {
-  const RowNbr<T> nbr{(const T*)rj, nx, ny, nz, cap, hx, local, zhalo, yhalo,
-                      T(ux), T(uy), T(uz)};
+  const ljw::RowNbr<T> nbr{(const T*)rj, nx, ny, nz, cap, hx, local, zhalo,
+                           yhalo, T(ux), T(uy), T(uz)};
   return ljw::launch_warp<T, false, false, false>(
       ri, 4, f, part, nx, ny, nz, cap, nbr, eps24, sig2, shift6, rc2, macro, 0, 0,
       stream);

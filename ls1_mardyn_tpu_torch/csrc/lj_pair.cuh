@@ -1,11 +1,11 @@
 // Device code shared by the LJ-12-6 cell kernels: the pair term, the
 // rounding helpers, the neighbour functor of the cell-local layouts
 // (LocalNbr) and the per-block reduction of u6 and the virial.  K1
-// (lj_cells.cu), K3 (lj_cells_cw.cu), K4 (lj_cells_row.cu) and K9
-// (lj_cells_zb.cu) run on the warp skeleton of lj_warp.cuh, which culls
-// and compacts the j slots; the kernels with a traversal of their own
-// (lj_cells_lanej.cu, lj_cells_n3l.cu, lj_packed.cu) use the pair term,
-// the rounding helpers and the block reduction only.
+// (lj_cells.cu), K3 (lj_cells_cw.cu), K4 (lj_cells_row.cu), K7
+// (lj_cells_lanej.cu), K8 (lj_cells_n3l.cu) and K9 (lj_cells_zb.cu) run
+// on the warp skeleton of lj_warp.cuh, which culls and compacts the j
+// slots; K10 (lj_packed.cu) has a traversal of its own and uses the pair
+// term, the rounding helpers and the block reduction only.
 //
 // Rounding: r^2 is rounded exactly as in the plain PyTorch versions (no
 // FMA contraction), so kernel and plain version apply the cutoff to the
@@ -56,13 +56,6 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// sum over the warp into every lane
-template <typename T>
-__device__ __forceinline__ T warp_allsum(T v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // c mod n for c in [-1, n] and any n >= 1 (a cell index plus an offset
 // of -1, 0 or 1): no integer division.  With n <= 2 two offsets reach
 // the same row through different periodic images; both count.
@@ -110,22 +103,8 @@ __device__ __forceinline__ void block_macro(T u6, T vir, T* __restrict__ part,
   }
 }
 
-// cells per block of lj_cells_n3l.cu: 128 threads for cap <= 128, else
-// one cell
-__host__ __device__ inline int cells_per_block(int cap) {
-  return cap >= 128 ? 1 : 128 / cap;
-}
-
-// Number of blocks of an lj_cells_n3l.cu launch (rows of the part[., 2]
-// buffer).
-inline int num_blocks(int nx, int ny, int nz, int cap) {
-  const int cpb = cells_per_block(cap);
-  const long long ncells = (long long)nx * ny * nz;
-  return (int)((ncells + cpb - 1) / cpb);
-}
-
 struct Grid {
-  int nx, ny, nz, cap, cpb;
+  int nx, ny, nz, cap;
 };
 
 template <typename T>

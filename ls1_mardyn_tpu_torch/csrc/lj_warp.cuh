@@ -1,13 +1,17 @@
 // Warp-level skeleton of the 1CLJ cell kernels K1 (lj_cells.cu), K3
-// (lj_cells_cw.cu), K4 (lj_cells_row.cu) and K9 (lj_cells_zb.cu): one
-// warp owns 32 slots of one i cell, stages the j slots of its 27
-// neighbour cells itself, keeps only those that can hold a pair inside
-// the cutoff, and walks the kept slots.  The pair term, the rounding
-// helpers, the neighbour functor of the cell-local layouts
-// (ljk::LocalNbr) and the per-block reduction of u6 and the virial are
-// lj_pair.cuh's; a kernel source adds its neighbour functor (where the j
-// slots of the cell at offset (dx, dy, dz) lie, and their image shift)
-// and its extern "C" entry points.
+// (lj_cells_cw.cu), K4 (lj_cells_row.cu), K7 (lj_cells_lanej.cu), K8
+// (lj_cells_n3l.cu) and K9 (lj_cells_zb.cu): one warp owns 32 slots of
+// one i cell, stages the j slots of its 27 neighbour cells itself, keeps
+// only those that can hold a pair inside the cutoff, and walks the kept
+// slots.  The pair term, the rounding helpers, the neighbour functor of
+// the cell-local layouts (ljk::LocalNbr) and the per-block reduction of
+// u6 and the virial are lj_pair.cuh's; this header adds the neighbour
+// functor of K4's and K7's j view (RowNbr).  A kernel source picks its
+// neighbour functor (where the j slots of the cell at offset (dx, dy, dz)
+// lie, and their image shift) and adds its extern "C" entry points.  K8
+// (Newton's third law by the half shell) has a kernel of its own in
+// lj_cells_n3l.cu built from the pieces here: warp_cell, i_chunk (the i
+// compaction, the split and the bounding box) and to_slot.
 //
 // What bounded the block skeleton this replaced (one block of 128/cap
 // cells, one thread an i slot, each neighbour cell staged in shared
@@ -180,6 +184,95 @@ __device__ __forceinline__ bool warp_cell(const ljk::Grid& gd, int& cx, int& cy,
   return cell < (long long)gd.nx * gd.ny * gd.nz;
 }
 
+// The i side of a warp: its valid slots compacted to the low lanes (and
+// to lanes 16.. when the warp is split), their bounding box, and the
+// largest s_i of the Gram form.
+template <typename T>
+struct IChunk {
+  J4<T> me;    // this lane's i: r_i and its slot id
+  T si, smax;  // s_i of me and the largest s_i (Gram form; else 0)
+  T lox, hix, loy, hiy, loz, hiz;
+  int first;   // the lane of the first valid slot
+  int ways;    // 2: two half-warps on alternate j slots (n_i <= 16)
+  bool live;   // this lane holds a valid i
+
+  // box distance of a staged j from the valid i, rounded as r^2
+  __device__ __forceinline__ T boxdist2(T x, T y, T z) const {
+    return ljk::norm2(gap(x, lox, hix), gap(y, loy, hiy), gap(z, loz, hiz));
+  }
+};
+
+// The i chunk of the slots p[0], p[W], p[2 * W] (this lane's slot s, vi
+// its validity, vmask the ballot of vi, ni = popc(vmask) > 0, rank the
+// valid slots below this lane), compacted through the warp's ring (EW
+// J4 words an entry).
+template <typename T, bool GRAM, int EW>
+__device__ __forceinline__ IChunk<T> i_chunk(const T* p, long long W, int s,
+                                             bool vi, unsigned vmask, int ni,
+                                             int rank, J4<T>* ring) {
+  IChunk<T> c;
+  const int lane = threadIdx.x & 31;
+  const T xi = p[0], yi = p[W], zi = p[2 * W];
+  // the bounding box of the valid i (an invalid lane stands in with the
+  // first valid one)
+  c.first = __ffs((int)vmask) - 1;
+  const T x0 = __shfl_sync(FULL, xi, c.first);
+  const T y0 = __shfl_sync(FULL, yi, c.first);
+  const T z0 = __shfl_sync(FULL, zi, c.first);
+  c.lox = warp_min(vi ? xi : x0);
+  c.hix = warp_max(vi ? xi : x0);
+  c.loy = warp_min(vi ? yi : y0);
+  c.hiy = warp_max(vi ? yi : y0);
+  c.loz = warp_min(vi ? zi : z0);
+  c.hiz = warp_max(vi ? zi : z0);
+  // the largest s_i of the valid i (Gram cull margin; s >= 0)
+  c.smax = GRAM ? warp_max(vi ? ljk::norm2(xi, yi, zi) : T(0)) : T(0);
+  // i compaction: valid slot of rank k -> lane k (and k + 16 when the
+  // warp is split)
+  if (vi) ring[EW * rank] = J4<T>{xi, yi, zi, T(s)};
+  __syncwarp();
+  c.ways = ni <= 16 ? 2 : 1;
+  const int k = c.ways == 2 ? (lane & 15) : lane;
+  c.live = k < ni;
+  c.me = ring[EW * (c.live ? k : 0)];
+  c.si = GRAM ? ljk::norm2(c.me.x, c.me.y, c.me.z) : T(0);
+  __syncwarp();
+  return c;
+}
+
+// The neighbour cells of K4's and K7's j view r_j[nz(+2), ny(+2), 4,
+// (nx+2*hx)*cap] (hx halo cells per side in x; with zhalo / yhalo one
+// explicit halo row per side in z / y).  local: cell-local coordinates,
+// the cell at offset (dx, dy, dz) shifted by (dx*ux, dy*uy, dz*uz);
+// otherwise absolute coordinates, the x halo pre-shifted by the caller,
+// and -+uy / -+uz added to a j row whose row index wrapped.
+template <typename T>
+struct RowNbr {
+  const T* rj;
+  int nx, ny, nz, cap, hx, local, zhalo, yhalo;
+  T ux, uy, uz;
+  __device__ __forceinline__ ljk::Stage<T> operator()(int cx, int cy, int cz,
+                                                      int dx, int dy,
+                                                      int dz) const {
+    const long long Wj = (long long)(nx + 2 * hx) * cap;
+    const int nyj = yhalo ? ny + 2 : ny;
+    const int zr = cz + dz, yr = cy + dy;
+    const int jz = zhalo ? zr + 1 : ljk::wrap(zr, nz);
+    const int jy = yhalo ? yr + 1 : ljk::wrap(yr, ny);
+    const int jx = cx + hx + dx;
+    // image shift in units of (ux, uy, uz): the cell edges in local
+    // mode; (0, by, bz) where a row index wrapped in absolute mode
+    int mx = dx, my = dy, mz = dz;
+    if (!local) {
+      mx = 0;
+      my = yhalo ? 0 : (yr < 0 ? -1 : (yr >= ny ? 1 : 0));
+      mz = zhalo ? 0 : (zr < 0 ? -1 : (zr >= nz ? 1 : 0));
+    }
+    return {rj + ((long long)jz * nyj + jy) * 4 * Wj + (long long)jx * cap, Wj,
+            T(mx) * ux, T(my) * uy, T(mz) * uz};
+  }
+};
+
 // A force sum of the slot of this lane: with the warp split, the two
 // halves' partial sums added (the same total in both halves), then taken
 // from compacted lane `rank`; 0 for an invalid slot.
@@ -304,29 +397,7 @@ __global__ void __launch_bounds__(WARPS * 32)
     const int rank = __popc(vmask & below);
     T* o = f + ((long long)cz * ny + cy) * (VI ? 6 : 3) * W + (long long)cx * cap + s;
     if (ni > 0) {  // warp-uniform
-      const T xi = p[0], yi = p[W], zi = p[2 * W];
-      // the bounding box of the valid i (an invalid lane stands in with
-      // the first valid one)
-      const int first = __ffs((int)vmask) - 1;
-      const T x0 = __shfl_sync(FULL, xi, first);
-      const T y0 = __shfl_sync(FULL, yi, first);
-      const T z0 = __shfl_sync(FULL, zi, first);
-      const T lox = warp_min(vi ? xi : x0), hix = warp_max(vi ? xi : x0);
-      const T loy = warp_min(vi ? yi : y0), hiy = warp_max(vi ? yi : y0);
-      const T loz = warp_min(vi ? zi : z0), hiz = warp_max(vi ? zi : z0);
-      // the largest s_i of the valid i (Gram cull margin; s >= 0)
-      const T smax = GRAM ? warp_max(vi ? ljk::norm2(xi, yi, zi) : T(0)) : T(0);
-      // i compaction: valid slot of rank k -> lane k (and k + 16 when
-      // the warp is split)
-      if (vi) ring[EW * rank] = J4<T>{xi, yi, zi, T(s)};
-      __syncwarp();
-      const int ways = ni <= 16 ? 2 : 1;
-      const int k = ways == 2 ? (lane & 15) : lane;
-      const bool live = k < ni;
-      const J4<T> me = ring[EW * (live ? k : 0)];
-      const T si = GRAM ? ljk::norm2(me.x, me.y, me.z) : T(0);
-      __syncwarp();
-
+      const IChunk<T> c = i_chunk<T, GRAM, EW>(p, W, s, vi, vmask, ni, rank, ring);
       int head = 0, cnt = 0;  // ring write position; staged, not walked
       for (int dz = -1; dz <= 1; ++dz) {
         for (int dy = -1; dy <= 1; ++dy) {
@@ -341,13 +412,12 @@ __global__ void __launch_bounds__(WARPS * 32)
                 x = ljk::add_rn(pj[0], st.shx);
                 y = ljk::add_rn(pj[st.stride], st.shy);
                 z = ljk::add_rn(pj[2 * st.stride], st.shz);
-                const T bd2 = ljk::norm2(gap(x, lox, hix), gap(y, loy, hiy),
-                                         gap(z, loz, hiz));
+                const T bd2 = c.boxdist2(x, y, z);
                 if constexpr (GRAM) {
                   sj = ljk::norm2(x, y, z);
                   keep = bd2 < ljk::add_rn(
                                    lj.rc2, ljk::mul_rn(gram_kappa<T>(),
-                                                       ljk::add_rn(smax, sj)));
+                                                       ljk::add_rn(c.smax, sj)));
                 } else {
                   keep = bd2 < lj.rc2;
                 }
@@ -362,9 +432,9 @@ __global__ void __launch_bounds__(WARPS * 32)
               cnt += __popc(km);
               __syncwarp();
               if (cnt >= 32) {
-                if (live)
-                  walk_ways<T, MACRO, VI, GRAM>(ways, ring, head - cnt, 32, me,
-                                                si, lj, acc);
+                if (c.live)
+                  walk_ways<T, MACRO, VI, GRAM>(c.ways, ring, head - cnt, 32,
+                                                c.me, c.si, lj, acc);
                 cnt -= 32;
                 __syncwarp();
               }
@@ -372,16 +442,16 @@ __global__ void __launch_bounds__(WARPS * 32)
           }
         }
       }
-      if (live)
-        walk_ways<T, MACRO, VI, GRAM>(ways, ring, head - cnt, cnt, me, si, lj,
-                                      acc);
-      o[0] = to_slot(acc.fx, ways, rank, vi);
-      o[W] = to_slot(acc.fy, ways, rank, vi);
-      o[2 * W] = to_slot(acc.fz, ways, rank, vi);
+      if (c.live)
+        walk_ways<T, MACRO, VI, GRAM>(c.ways, ring, head - cnt, cnt, c.me, c.si,
+                                      lj, acc);
+      o[0] = to_slot(acc.fx, c.ways, rank, vi);
+      o[W] = to_slot(acc.fy, c.ways, rank, vi);
+      o[2 * W] = to_slot(acc.fz, c.ways, rank, vi);
       if (VI) {
-        o[3 * W] = T(0.5) * to_slot(acc.vx, ways, rank, vi);
-        o[4 * W] = T(0.5) * to_slot(acc.vy, ways, rank, vi);
-        o[5 * W] = T(0.5) * to_slot(acc.vz, ways, rank, vi);
+        o[3 * W] = T(0.5) * to_slot(acc.vx, c.ways, rank, vi);
+        o[4 * W] = T(0.5) * to_slot(acc.vy, c.ways, rank, vi);
+        o[5 * W] = T(0.5) * to_slot(acc.vz, c.ways, rank, vi);
       }
     } else {
       for (int c = 0; c < (VI ? 6 : 3); ++c) o[c * W] = T(0);
@@ -399,7 +469,7 @@ int launch_warp(const void* ri, int pi, void* f, void* part, int nx, int ny,
                 int nz, int cap, Nbr nbr, double eps24, double sig2,
                 double shift6, double rc2, int macro, int vi, int gram,
                 void* stream) {
-  const ljk::Grid gd{nx, ny, nz, cap, 0};
+  const ljk::Grid gd{nx, ny, nz, cap};
   const ljk::LJ<T> lj{T(eps24), T(sig2), T(shift6), T(rc2)};
   const unsigned blocks = (unsigned)num_blocks(nx, ny, nz, cap, BAND);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

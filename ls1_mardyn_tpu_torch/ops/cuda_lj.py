@@ -21,10 +21,10 @@ K1, K3 and K4 run on the warp skeleton of csrc/lj_warp.cuh (a warp owns
 cells that are valid and within the cutoff of its i slots' bounding
 box).  The launch_* functions are the launches behind the wrappers, on
 checked inputs; they raise for a CPU tensor unless the library was
-built for the CPU (tools/cuda_emu.py).  inside_pairs counts the ordered
-pairs inside the cutoff that K1, K3, K4 or K9 evaluates (a launch with
-eps24 = 0 and shift6 = 1), exactly, for the kernels' bound and its
-check against the plain version's count.
+built for the CPU (tools/cuda_emu.py).  inside_pairs counts the pairs
+inside the cutoff that K1, K3, K4, K7, K8 or K9 evaluates (a launch with
+eps24 = 0 and shift6 = 1; ordered pairs, unordered for K8), exactly, for
+the kernels' bound and its check against the plain version's count.
 """
 
 from __future__ import annotations
@@ -373,24 +373,38 @@ def launch_lj_cells_cw(r_i, r_j=None, *, dims, cap, cell_len, eps24, sig2,
         compute_macro, parts=parts)
 
 
-def pairs_from_part(part):
-    """Ordered pairs inside the cutoff counted by a launch with eps24 = 0
-    and shift6 = 1: a block's halved u6 is half its count (exact in f32
-    below 2^24 pairs a block), and the blocks are summed in f64."""
-    return int(round(2.0 * float(part[:, 0].sum(dtype=torch.float64))))
+def pairs_from_part(part, halved=True):
+    """Pairs inside the cutoff counted by a launch with eps24 = 0 and
+    shift6 = 1: a block's u6 is its count, halved where the kernel sees
+    each pair from both sides (the ordered count is then twice it; exact
+    in f32 below 2^24 pairs a block), and the blocks are summed in f64.
+    halved=False: K8, each pair once, its unordered count."""
+    total = float(part[:, 0].sum(dtype=torch.float64))
+    return int(round(2.0 * total if halved else total))
 
 
 def inside_pairs_reference(r_i, r_j=None, *, dims, cap, rc2, cell_len=None,
                            z_halo=False, kernel="K3", **row):
-    """Ordered pairs inside the cutoff that the plain version of a kernel
-    evaluates on these inputs, counted from its masks: K3's (K1's and
-    K9's with r_j None), K4's (kernel="row", r_j its j view, `row` its
-    box, hx, local_coords and y_halo) or K9's Gram form
-    (kernel="zb_gram", whose r^2 is the Gram one)."""
+    """Pairs inside the cutoff that the plain version of a kernel
+    evaluates on these inputs, counted from its masks: ordered pairs of
+    K3 (K1's and K9's with r_j None), K4 (kernel="row", r_j its j view,
+    `row` its box, hx, local_coords and y_halo), K7 (kernel="lanej": K4's
+    in local mode with one x halo cell, `row` its box) or K9's Gram form
+    (kernel="zb_gram", whose r^2 is the Gram one); unordered pairs of K8
+    (kernel="n3l", r_j None)."""
     nx, ny, nz = dims
+    if kernel == "n3l":
+        from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import (
+            lj_cell_forces_n3l_reference)
+
+        return lj_cell_forces_n3l_reference(
+            r_i, dims=dims, cap=cap, cell_len=cell_len, eps24=0.0, sig2=0.0,
+            shift6=0.0, rc2=rc2, compute_macro=False, count=True)
     pos_i, val_i = _cells(r_i, nx, cap)
     kw = dict(cap=cap, eps24=0.0, sig2=0.0, shift6=0.0, rc2=rc2,
               compute_macro=False, count=True)
+    if kernel == "lanej":
+        kernel, row = "row", dict(row, hx=1, local_coords=True)
     if kernel == "row":
         return _reference(pos_i, val_i, _row_j_cells(
             r_j, dims=dims, cap=cap, z_halo=z_halo, **row), **kw)
@@ -404,25 +418,32 @@ def inside_pairs_reference(r_i, r_j=None, *, dims, cap, rc2, cell_len=None,
 
 
 def inside_pairs(r_i, r_j=None, *, kernel="K3", **kw):
-    """Ordered pairs inside the cutoff that a kernel evaluates on these
-    inputs: its launch with eps24 = 0 and shift6 = 1, counted by
-    pairs_from_part.  kernel: "K3" (r_j, z_halo), "K1" (r_j None),
-    "row" (K4: r_j its j view, and its box, hx, local_coords, z_halo,
-    y_halo), "zb" or "zb_gram" (K9 plain or Gram, r_j None); kw: dims,
-    cap, rc2 and cell_len (all but K4), and the kernel's options.  A CPU
-    tensor counts the plain version's pairs (inside_pairs_reference)."""
+    """Pairs inside the cutoff that a kernel evaluates on these inputs:
+    its launch with eps24 = 0 and shift6 = 1, counted by pairs_from_part
+    (ordered pairs; unordered for K8).  kernel: "K3" (r_j, z_halo), "K1"
+    (r_j None), "row" (K4: r_j its j view, and its box, hx,
+    local_coords, z_halo, y_halo), "lanej" (K7: r_j its j view, and its
+    box), "n3l" (K8, r_j None), "zb" or "zb_gram" (K9 plain or Gram, r_j
+    None); kw: dims, cap, rc2 and cell_len (all but K4 and K7), and the
+    kernel's options.  A CPU tensor counts the plain version's pairs
+    (inside_pairs_reference)."""
     if r_i.device.type == "cpu":
         return inside_pairs_reference(r_i, r_j, kernel=kernel, **kw)
     kw.update(eps24=0.0, sig2=0.0, shift6=1.0, parts=True)
-    if kernel in ("K1", "zb", "zb_gram"):
+    if kernel in ("K1", "n3l", "zb", "zb_gram"):
         if r_j is not None or kw.pop("z_halo", False):
             raise ValueError(f"inside_pairs: {kernel} reads its own j cells")
+    from ls1_mardyn_tpu_torch.ops import cuda_lj_variants as V
+
     if kernel == "K1":
         _, part = launch_lj_cells(r_i, **kw)
     elif kernel in ("zb", "zb_gram"):
-        from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import launch_lj_cells_zb
-
-        _, part = launch_lj_cells_zb(r_i, gram=kernel == "zb_gram", **kw)
+        _, part = V.launch_lj_cells_zb(r_i, gram=kernel == "zb_gram", **kw)
+    elif kernel == "n3l":
+        _, part = V.launch_lj_cells_n3l(r_i, **kw)
+        return pairs_from_part(part, halved=False)
+    elif kernel == "lanej":
+        _, part = V.launch_lj_cells_lanej(r_i, r_j, **kw)
     elif kernel == "row":
         _, part = launch_lj_cells_row(r_i, r_j, **kw)
     else:

@@ -15,11 +15,13 @@ K7 takes the i planes and a j view with one x halo cell per side, as
 the TPU kernel and K4 do.  Energies: K7 and K9 evaluate each pair from
 both sides and halve u6 and the virial, K8 evaluates each pair once.  A
 wrapper takes the plain version only for a CPU tensor; a CUDA tensor
-launches the kernel (built at first use) or raises, also where a cap
-stages more cells than a block's shared memory holds in K7 (the entry
-point returns cudaFuncSetAttribute's status).  K9 runs on the warp
-skeleton of K1 (csrc/lj_warp.cuh), which takes any cap the wrappers
-take; launch_lj_cells_zb is its launch on checked inputs.
+launches the kernel (built at first use) or raises.  All three run on
+the warp skeleton of K1 (csrc/lj_warp.cuh), which takes any cap the
+wrappers take: K7 with K4's neighbour functor, K8 by the half shell
+with its reactions passed through the lanes by shuffles and added to j
+by atomics.  launch_lj_cells_lanej,
+launch_lj_cells_n3l and launch_lj_cells_zb are their launches on
+checked inputs.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def _device_check(t, what):
         raise ValueError(f"{what}: device {t.device}")
 
 
-# -- K7: j on the lanes of a warp ----------------------------------------------
+# -- K7: K4's function in cell-local mode -----------------------------------------
 
 def lj_cell_forces_lanej(
     r_i, r_j, *, dims, cap, box, eps24, sig2, shift6, rc2, compute_macro=True,
@@ -57,9 +59,10 @@ def lj_cell_forces_lanej(
     (cell-local coordinates) against the 9 neighbour rows of the j view
     r_j [nz, ny, 4, (nx+2)*cap] with one periodic halo cell per side in
     x.  The function is K4's in local mode
-    (lj_cell_forces_row_reference is its plain version); the kernel puts
-    j slots on the lanes of a warp and reduces the i forces across it,
-    once per neighbour row, or with `defer` once per i slot.
+    (lj_cell_forces_row_reference is its plain version).  `defer` chose
+    where the TPU kernel reduced over its j lanes (once per tile, not per
+    neighbour row), i.e. the order of the sums; the CUDA kernel has no
+    such reduction, and both values give bit-identical results.
     Returns (f [nz,ny,3,nx*cap], u6, vir)."""
     nx, ny, nz = dims
     what = "lj_cell_forces_lanej"
@@ -78,19 +81,30 @@ def lj_cell_forces_lanej(
     _device_check(r_i, what)
     if not (r_i.is_contiguous() and r_j.is_contiguous()):
         raise ValueError(f"{what}: r_i and r_j must be contiguous")
-    out = _launch(
+    out = launch_lj_cells_lanej(
+        r_i, r_j, dims=dims, cap=cap, box=box, eps24=eps24, sig2=sig2,
+        shift6=shift6, rc2=rc2, compute_macro=compute_macro, defer=defer)
+    lj_cell_forces_lanej.launches += 1
+    return out
+
+
+lj_cell_forces_lanej.launches = 0
+
+
+def launch_lj_cells_lanej(r_i, r_j, *, dims, cap, box, eps24, sig2, shift6,
+                          rc2, compute_macro=True, defer=True, parts=False):
+    """The launch of csrc/lj_cells_lanej.cu behind lj_cell_forces_lanej,
+    on checked inputs: (f, u6, vir), or (f, part) with `parts`."""
+    nx, ny, nz = dims
+    units = _row_units(dims, box, True)
+    return _launch(
         "lj_cells_lanej", r_i, 3, dims, cap,
         lambda f, part: (
             r_i.data_ptr(), r_j.data_ptr(), f.data_ptr(), part.data_ptr(),
             nx, ny, nz, cap, *units, float(eps24), float(sig2),
             float(shift6), float(rc2), int(bool(compute_macro)),
             int(bool(defer))),
-        compute_macro)
-    lj_cell_forces_lanej.launches += 1
-    return out
-
-
-lj_cell_forces_lanej.launches = 0
+        compute_macro, parts=parts)
 
 
 # -- K8: Newton's third law, the half shell --------------------------------------
@@ -102,12 +116,14 @@ FORWARD = tuple(o for o in itertools.product((-1, 0, 1), repeat=3)
 
 
 def lj_cell_forces_n3l_reference(
-    r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2, compute_macro=True
+    r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2, compute_macro=True,
+    count=False
 ):
     """Plain PyTorch version of K8: the own cell with j > i and the 13
     forward neighbour cells, each pair inside the cutoff once; the pair
     force is added to the i slot and subtracted from the j slot with
-    index_add_.  u6 and the virial are not halved."""
+    index_add_.  u6 and the virial are not halved.  With `count`, the
+    number of (unordered) pairs inside the cutoff (an int)."""
     nx, ny, nz = dims
     dtype, dev = r4.dtype, r4.device
     pos, val = _cells(r4, nx, cap)
@@ -117,6 +133,7 @@ def lj_cell_forces_n3l_reference(
     vir = torch.zeros((), dtype=dtype, device=dev)
     upper = torch.triu(torch.ones((cap, cap), dtype=torch.bool, device=dev), 1)
     zc = max(1, min(nz, _REF_CHUNK // (ny * nx * cap * cap)))
+    n_inside = 0
     for z0 in range(0, nz, zc):
         z1 = min(nz, z0 + zc)
         pi, vi = pos[z0:z1], val[z0:z1]
@@ -129,6 +146,9 @@ def lj_cell_forces_n3l_reference(
             m = vi[..., :, None] & vj[..., None, :] & (dr2 < rc2)
             if off == (0, 0, 0):
                 m = m & upper
+            if count:
+                n_inside += int(m.sum())
+                continue
             z, y, x, si, sj = m.nonzero(as_tuple=True)
             drm = dr[z, y, x, si, sj]
             fp, u6p = potentials.lj(drm, dr2[z, y, x, si, sj], eps24, sig2)
@@ -141,6 +161,8 @@ def lj_cell_forces_n3l_reference(
             if compute_macro:
                 u6 += (u6p + shift6).sum()
                 vir += (fp * drm).sum()
+    if count:
+        return n_inside
     return _planes_out(f.reshape(nz, ny, nx, cap, 3), nx, cap), u6, vir
 
 
@@ -161,24 +183,36 @@ def lj_cell_forces_n3l(
         raise ValueError(f"{what}: dims {dims} need >= 3 cells per axis")
     if min(cell_len) ** 2 < rc2:
         raise ValueError(f"{what}: cell edge {min(cell_len)} < cutoff")
+    if nz * ny * 3 * nx * cap >= 2 ** 31:
+        raise ValueError(f"{what}: {nz * ny * 3 * nx * cap} force elements "
+                         "(the kernel indexes them with int, < 2^31)")
     kw = dict(dims=dims, cap=cap, cell_len=cell_len, eps24=eps24, sig2=sig2,
               shift6=shift6, rc2=rc2, compute_macro=compute_macro)
     if r4.device.type == "cpu":
         return lj_cell_forces_n3l_reference(r4, **kw)
     _device_check(r4, what)
-    P = _planes(r4, nx * cap)
-    out = _launch(
-        "lj_cells_n3l", r4, 3, dims, cap,
-        lambda f, part: (
-            r4.data_ptr(), f.data_ptr(), part.data_ptr(), nx, ny, nz, cap, P,
-            *(float(c) for c in cell_len), float(eps24), float(sig2),
-            float(shift6), float(rc2), int(bool(compute_macro))),
-        compute_macro, zero=True)
+    out = launch_lj_cells_n3l(r4, **kw)
     lj_cell_forces_n3l.launches += 1
     return out
 
 
 lj_cell_forces_n3l.launches = 0
+
+
+def launch_lj_cells_n3l(r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2,
+                        compute_macro=True, parts=False):
+    """The launch of csrc/lj_cells_n3l.cu behind lj_cell_forces_n3l, on
+    checked inputs (f zeroed first: the kernel adds into it): (f, u6,
+    vir), or (f, part) with `parts`."""
+    nx, ny, nz = dims
+    P = _planes(r4, nx * cap)
+    return _launch(
+        "lj_cells_n3l", r4, 3, dims, cap,
+        lambda f, part: (
+            r4.data_ptr(), f.data_ptr(), part.data_ptr(), nx, ny, nz, cap, P,
+            *(float(c) for c in cell_len), float(eps24), float(sig2),
+            float(shift6), float(rc2), int(bool(compute_macro))),
+        compute_macro, zero=True, parts=parts)
 
 
 # -- K9: z bands, and the Gram form ---------------------------------------------

@@ -1,9 +1,12 @@
-"""Kernel K9's device code on the CPU: csrc/lj_cells_zb.cu on the warp
-skeleton csrc/lj_warp.cuh, plain and in the Gram form, compiled by g++
-under the CUDA emulation shim tools/cuda_emu.h (tools/cuda_emu.py) and
-run through the port's own launch code
-(ops/cuda_lj_variants.launch_lj_cells_zb) on CPU tensors, against its
-plain versions lj_cell_forces_zb_reference (gram=False and True).
+"""Kernels K9's and K7's device code on the CPU: csrc/lj_cells_zb.cu
+(plain and in the Gram form) and csrc/lj_cells_lanej.cu on the warp
+skeleton csrc/lj_warp.cuh, compiled by g++ under the CUDA emulation shim
+tools/cuda_emu.h (tools/cuda_emu.py) and run through the port's own
+launch code (ops/cuda_lj_variants.launch_lj_cells_zb,
+launch_lj_cells_lanej) on CPU tensors, against their plain versions
+lj_cell_forces_zb_reference (gram=False and True) and, for K7,
+lj_cell_forces_row_reference in cell-local mode on the cells and a
+one-cell periodic x halo (the view of RMMSimulation._row_views).
 
 Cases: the scenes of tests/test_torch_lj_emu.py (sparse cells of 0, 1 and
 up to 16 molecules, cap 64, full cells, pairs within an ulp of rc), f32,
@@ -13,7 +16,8 @@ fill.  Tolerance: 1e-12 of max|F| and relative on u6 and the virial in
 f64, 1e-5 in f32.  Every case also holds the ordered pairs inside the
 cutoff that the kernel evaluates (a launch with eps24 = 0 and shift6 = 1)
 to the plain version's count, exactly; in the Gram form both count by
-the Gram r^2 (inside_pairs_reference(kernel="zb_gram")).
+the Gram r^2 (inside_pairs_reference(kernel="zb_gram")).  K7's `defer`
+(the TPU kernel's place of its lane reduction) must not change a bit.
 
 The Gram form's box cull keeps a margin (csrc/lj_warp.cuh), because the
 Gram r^2 can come out below the true distance.  A mutant built with a
@@ -66,6 +70,20 @@ def emu_zb(tmp_path_factory):
                          edits=edits)["lj_cells_zb"]
         libs[tag] = cuda_lj.type_lib(ctypes.CDLL(str(path)), "lj_cells_zb")
     return libs
+
+
+@pytest.fixture(scope="module")
+def emu_lanej(tmp_path_factory):
+    """csrc/lj_cells_lanej.cu built for the CPU (skips without g++)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is absent: the kernel cannot be built for the CPU")
+    spec = importlib.util.spec_from_file_location(
+        "cuda_emu", ROOT / "tools" / "cuda_emu.py")
+    emu = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(emu)
+    path = emu.build(["lj_cells_lanej"],
+                     tmp_path_factory.mktemp("lanej"))["lj_cells_lanej"]
+    return cuda_lj.type_lib(ctypes.CDLL(str(path)), "lj_cells_lanej")
 
 
 def use(monkeypatch, lib):
@@ -145,3 +163,39 @@ def test_gram_margin_zero_mutant_caught_only_near_rc(emu_zb, monkeypatch):
         if got != want:
             caught.add(case)
     assert caught == {"near_rc", "near_rc_f32"}
+
+
+def row_inputs(case):
+    """(r_i, r_j, kw, lim) of K7 on a case: the contiguous i planes, the
+    j view with one periodic x halo cell per side, and K4's cell-local
+    arguments."""
+    r4, kw, lim = case_inputs(case)
+    nx, cap = kw["dims"][0], kw["cap"]
+    r_i = r4.contiguous()
+    r_j = torch.cat([r_i[..., (nx - 1) * cap:], r_i, r_i[..., :cap]], -1)
+    box = tuple(c * d for c, d in zip(kw.pop("cell_len"), kw["dims"]))
+    return r_i, r_j, dict(kw, box=box), lim
+
+
+@pytest.mark.parametrize("case", ["sparse32", "sparse64", "full32", "near_rc",
+                                  "near_rc_f32", "sparse32_f32", "planes8",
+                                  "rmm_state", "cap96"])
+def test_k7_device_code_matches_plain(emu_lanej, monkeypatch, case):
+    """K7 with and without u6/virial against K4's plain version in
+    cell-local mode, its in-cutoff count against the plain version's,
+    and both values of `defer` bit-identical."""
+    use(monkeypatch, emu_lanej)
+    r_i, r_j, kw, lim = row_inputs(case)
+    want = cuda_lj.lj_cell_forces_row_reference(r_i, r_j, local_coords=True, **kw)
+    got = V.launch_lj_cells_lanej(r_i, r_j, defer=True, **kw)
+    assert_close(got, want, lim)
+    other = V.launch_lj_cells_lanej(r_i, r_j, defer=False, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, other))
+    f, _, _ = V.launch_lj_cells_lanej(r_i, r_j, compute_macro=False, **kw)
+    torch.testing.assert_close(f, want[0], rtol=0,
+                               atol=lim * float(want[0].abs().max()))
+    _, part = V.launch_lj_cells_lanej(
+        r_i, r_j, parts=True, **dict(kw, eps24=0.0, sig2=0.0, shift6=1.0))
+    assert cuda_lj.pairs_from_part(part) == cuda_lj.inside_pairs_reference(
+        r_i, r_j, kernel="lanej", dims=kw["dims"], cap=kw["cap"], box=kw["box"],
+        rc2=kw["rc2"]) > 0

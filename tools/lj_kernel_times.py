@@ -1,12 +1,13 @@
-"""The 1CLJ cell kernels K1, K3, K4 and K9 of several designs side by side
-on one NVIDIA GPU.
+"""The 1CLJ cell kernels K1, K3, K4, K7, K8 and K9 of several designs side
+by side on one NVIDIA GPU.
 
     python3 tools/lj_kernel_times.py [--variant TAG=DIR[:FLAGS]] ...
-        [--kernels K1,K3,K4,K9] [--no-check TAG] ... [--reps 10] [--walk]
-        [--gram-order]
+        [--kernels K1,K3,K4,K7,K8,K9] [--no-check TAG] ... [--reps 10]
+        [--walk] [--gram-order]
 
 Builds csrc/lj_cells.cu (K1), csrc/lj_cells_cw.cu (K3),
-csrc/lj_cells_row.cu (K4) and csrc/lj_cells_zb.cu (K9) of each variant
+csrc/lj_cells_row.cu (K4), csrc/lj_cells_lanej.cu (K7),
+csrc/lj_cells_n3l.cu (K8) and csrc/lj_cells_zb.cu (K9) of each variant
 (tools/kernel_variants.py: DIR a copy of ls1_mardyn_tpu_torch/csrc, e.g.
 a parent commit's from `git archive` or an edited copy, and optional
 nvcc flags; default: the checkout's own csrc, tag "tree") and prints
@@ -26,12 +27,15 @@ chip_smoke.py (N = 4,194,304, f32):
                    u6/virial (the general path with cw off);
   K4 on K1's grid  the RMM state through the view of its switch cw = False,
                    without u6/virial;
+  K7               the same view (the switch lanej), without u6/virial;
+  K8               the RMM planes read in place, without u6/virial;
   K9, K9 gram      the RMM planes read in place, without u6/virial;
 and held against the plain versions there.  With --walk the j slots a
 warp of the warp skeleton (csrc/lj_warp.cuh) stages, keeps and walks on
 each call's state are counted on the host (chip_smoke.lj_warp_walk), for
 the design steps a (no box cull, no half-warp split), b (cull, no split)
-and c (both, the shipped kernel; for K9 gram with the Gram margin).
+and c (both, the shipped kernel; for K9 gram with the Gram margin; for
+K8 by the half shell).
 With --gram-order K9's Gram form in f32 is held, on chip_smoke.py's
 check scenes and an 8^3 cut of the RMM state, against the plain version
 on the card and on the CPU and against the f64 plain version (the f32
@@ -53,7 +57,9 @@ import kernel_variants as kv  # noqa: E402
 
 # library and check phase of each kernel
 KERNELS = {"K1": ("lj_cells", cs.phase_k1), "K3": ("lj_cells_cw", cs.phase_k3),
-           "K4": ("lj_cells_row", cs.phase_k4), "K9": ("lj_cells_zb", cs.phase_k9)}
+           "K4": ("lj_cells_row", cs.phase_k4),
+           "K7": ("lj_cells_lanej", cs.phase_k7),
+           "K8": ("lj_cells_n3l", cs.phase_k8), "K9": ("lj_cells_zb", cs.phase_k9)}
 
 
 def full_width_inputs(kernels):
@@ -79,16 +85,24 @@ def full_width_inputs(kernels):
         calls["K3 on K1's grid"] = (cuda_lj.lj_cell_forces_cw,
                                     cuda_lj.lj_cell_forces_cw_reference,
                                     (r4.contiguous(),), fast, {})
+    V = cuda_lj_variants
+    r_i, r_j = rsim._row_views(r4)
+    row_walk = dict(j_cells=cuda_lj._row_j_cells(r_j, dims=dims, cap=cap,
+                                                 box=rsim.box, local_coords=True))
+    row = dict(dims=dims, cap=cap, box=rsim.box, compute_macro=False, **lj)
     if "K4" in kernels:
-        r_i, r_j = rsim._row_views(r4)
         calls["K4 on K1's grid"] = (
             cuda_lj.lj_cell_forces_row, cuda_lj.lj_cell_forces_row_reference,
-            (r_i, r_j), dict(dims=dims, cap=cap, box=rsim.box, local_coords=True,
-                             compute_macro=False, **lj),
-            dict(j_cells=cuda_lj._row_j_cells(r_j, dims=dims, cap=cap,
-                                              box=rsim.box, local_coords=True)))
+            (r_i, r_j), dict(row, local_coords=True), row_walk)
+    if "K7" in kernels:
+        calls["K7"] = (V.lj_cell_forces_lanej,
+                       functools.partial(cuda_lj.lj_cell_forces_row_reference,
+                                         local_coords=True),
+                       (r_i, r_j), row, row_walk)
+    if "K8" in kernels:
+        calls["K8"] = (V.lj_cell_forces_n3l, V.lj_cell_forces_n3l_reference,
+                       (r4,), fast, dict(half=True))
     if "K9" in kernels:
-        V = cuda_lj_variants
         for key, gram in (("K9", False), ("K9 gram", True)):
             calls[key] = (functools.partial(V.lj_cell_forces_zb, gram=gram),
                           functools.partial(V.lj_cell_forces_zb_reference,
@@ -155,7 +169,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variant", action="append", default=[],
                     help="TAG=DIR[:FLAGS] (tools/kernel_variants.py)")
-    ap.add_argument("--kernels", default="K1,K3,K4,K9")
+    ap.add_argument("--kernels", default="K1,K3,K4,K7,K8,K9")
     ap.add_argument("--no-check", action="append", default=[], metavar="TAG")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--walk", action="store_true")
