@@ -29,7 +29,10 @@ non-zero and never prints the result line):
            first 4 planes of an 8-plane tensor read in place; each case's
            ordered in-cutoff pair count equal to the plain version's
   K2       shift-merge rebin vs plain on a state drifted 12 steps,
-           bit-identical, f32 and f64; overflow on a two-cell hop
+           bit-identical, f32 and f64; every cap from 32 to 1024 in steps
+           of 32 on grids with axes of 1, 2 and 3 cells (rebin_scene);
+           overflow on a two-cell hop, and in the x or the y stage alone
+           (rebin_stage_overflow_scene), in both
   K3       cell-window forces vs plain on 12^3 cells cut from the seed,
            cap 32 and 64, f32 and f64 (limits as K1): plain, with Vi,
            with explicit z halo rows, and at ny = 2; and on K1's sparse,
@@ -62,8 +65,12 @@ non-zero and never prints the result line):
            place (sentinel fill) and on K1's sparse, full and near-rc
            scenes, with in-cutoff counts as K1 (by the Gram r^2 for
            gram); cap 1024 agrees and cap 1056 raises
-  K10      packed-pencil forces vs plain on the cut state packed into
-           pencils, with wrap groups at both x ends
+  K10      packed-pencil forces vs plain (limits as K1) on the cut state
+           packed into pencils (cap 32 and 64), on K1's sparse, full and
+           near-rc scenes packed, and on 3^3 cells where a group wraps at
+           both x ends; wrap groups at both ends in every case; each
+           case's in-cutoff count (each pair once) equal to the plain
+           version's
   small    the RMM driver on the card vs on the CPU (plain versions),
            N=1024, f64, 20 steps: T, p, Upot rtol 1e-9, r and v 1e-9
   general-small  the general engine on the card vs on the CPU, f64, 20
@@ -73,7 +80,8 @@ non-zero and never prints the result line):
            a 2CLJ+quadrupole lattice of N=4096 and a 1CLJ liquid slab in
            vapour on adaptive z rows under "auto" (K6)
   main     the RMM path at N=4,194,304 for rebin_every+2 steps and a
-           timed window of rebin_every steps
+           timed window of rebin_every steps; one whole shift rebin
+           (fold, K2, split) timed
   main/<switch>  3 steps each through RMMSimulation's switches, set on
            md.engine.sim: row (K4), cw (K3), lanej (K7), n3l (K8), zb and
            zb_gram (K9); the selected kernel ran every step, T within 10%
@@ -95,7 +103,8 @@ non-zero and never prints the result line):
            K3, K4, K7, K8 (full and half shell) and K9 (zb and gram) also
            report what their warps walk (j slots staged, the share culled,
            j iterations; lj_warp_walk) and their ptxas registers and
-           spills; K3 and K4
+           spills, K10 its groups' walk (packed_warp_walk) beside K8's and
+           its ptxas report, K2 the bytes of its two passes; K3 and K4
            also against plain on K1's grid (56,60,60), K7-K10 on K1's
            state beside K1; the multi-site plain versions on a 2-row z
            slab, and at full width when that extrapolates to under 60 s;
@@ -417,7 +426,71 @@ def phase_k1(device):
     say("K1", launches=lj_cell_forces.launches)
 
 
+REBIN_CL = (2.6, 2.7, 2.8)
+
+
+def rebin_scene(dims, cap, dtype, device, seed=0, fill=0.3, reach=0.3):
+    """An 11-column stack [nz, ny, 11, nx*cap] (x, y, z, valid, vx, vy,
+    vz, mid, fx, fy, fz) for the K2 checks on cells of edge REBIN_CL: each
+    cell holds up to fill*cap molecules in random slots, each coordinate
+    drawn from [-reach, 1 + reach) cell edges, so that a share hops one
+    cell on each axis; the other columns random, empty slots junk with
+    valid 0."""
+    nx, ny, nz = dims
+    rng = np.random.default_rng(seed)
+    W = nx * cap
+    big = rng.normal(size=(nz, ny, 11, W))
+    cl = np.array(REBIN_CL)[None, None, :, None]
+    big[:, :, 0:3] = rng.uniform(-reach, 1.0 + reach, size=(nz, ny, 3, W)) * cl
+    n = rng.integers(0, int(fill * cap) + 1, size=(nz, ny, nx))
+    valid = np.zeros((nz, ny, nx, cap), bool)
+    for z, y, x in np.ndindex(nz, ny, nx):
+        valid[z, y, x, rng.choice(cap, size=n[z, y, x], replace=False)] = True
+    big[:, :, 3] = valid.reshape(nz, ny, W)
+    return torch.as_tensor(big, dtype=dtype).contiguous().to(device)
+
+
+def rebin_stage_overflow_scene(stage, dtype, device, cap=32, cell_len=REBIN_CL):
+    """A stack on 4^3 cells (edges cell_len) that overflows cap only in
+    one intermediate stage ("x" or "y") of the three: cell (1,1,1) holds
+    20 molecules that hop along the next axis, and its neighbour 20 that
+    hop into (1,1,1) along the stage axis and away along the next, so
+    that (1,1,1) holds 40 after that stage and every cell at most 20 at
+    the end."""
+    nx = ny = nz = 4
+    W = nx * cap
+    big = np.zeros((nz, ny, 11, W))
+    a = 0 if stage == "x" else 1  # the stage axis; the next one moves them on
+    cl = np.array(cell_len)
+
+    def put(cell, hop):
+        x, y, z = cell
+        s = slice(x * cap, x * cap + 20)
+        for ax in range(3):
+            big[z, y, ax, s] = (0.5 + 0.7 * hop[ax]) * cl[ax]
+        big[z, y, 3, s] = 1.0
+        big[z, y, 4:11, s] = np.arange(7)[:, None] + 1.0 + 0.01 * np.arange(20)
+
+    own, nbr = [0, 0, 0], [0, 0, 0]
+    own[a + 1] = 1
+    nbr[a], nbr[a + 1] = 1, -1
+    src = [1, 1, 1]
+    src[a] = 0
+    put((1, 1, 1), own)
+    put(tuple(src), nbr)
+    return torch.as_tensor(big, dtype=dtype).contiguous().to(device)
+
+
+# grids of the K2 cap sweep: axes of 1, 2 and 3 cells
+REBIN_GRIDS = ((3, 2, 1), (1, 3, 2), (2, 1, 3), (2, 2, 2))
+
+
 def phase_k2(device):
+    """K2 vs its plain version: the cut RMM state drifted 12 steps in f32
+    and f64 (bit-identical, overflow clear), every cap the wrapper takes
+    (32 to 1024 in steps of 32) on grids with axes of 1, 2 and 3 cells
+    (rebin_scene), overflow on a two-cell hop, and overflow in the x or
+    the y stage alone (rebin_stage_overflow_scene) in both."""
     from ls1_mardyn_tpu_torch.ops.cuda_rebin import rebin_shift, rebin_shift_reference
 
     for dtype in (torch.float32, torch.float64):
@@ -443,7 +516,29 @@ def phase_k2(device):
         check(bool(rebin_shift(bad, **kw)[1])
               and bool(rebin_shift_reference(bad, **kw)[1]),
               "K2 overflow not latched on a two-cell hop")
-    say("K2", overflow_on_two_cell_hop=True, launches=rebin_shift.launches)
+    caps = list(range(32, 1025, 32))
+    for i, cap in enumerate(caps):
+        dims = REBIN_GRIDS[i % len(REBIN_GRIDS)]
+        dtype = (torch.float32, torch.float64)[i % 2]
+        big = rebin_scene(dims, cap, dtype, device, seed=cap)
+        kw = dict(dims=dims, cap=cap, cell_len=REBIN_CL, sentinel=bool(i % 3))
+        oa, fa = rebin_shift(big, **kw)
+        ob, fb = rebin_shift_reference(big, **kw)
+        check(not bool(fa) and not bool(fb) and bool(torch.equal(oa, ob)),
+              f"K2 at cap {cap} on {dims} ({dtype}): overflow {bool(fa)} / "
+              f"{bool(fb)}, bit-identical {bool(torch.equal(oa, ob))}")
+    flags = {}
+    for stage in ("x", "y"):
+        big = rebin_stage_overflow_scene(stage, torch.float64, device)
+        kw = dict(dims=(4, 4, 4), cap=32, cell_len=REBIN_CL, sentinel=False)
+        flags[stage] = (bool(rebin_shift(big, **kw)[1]),
+                        bool(rebin_shift_reference(big, **kw)[1]))
+        check(all(flags[stage]), f"K2 overflow after the {stage} stage alone: "
+                                 f"{flags[stage]}")
+    say("K2", caps_bit_identical=f"{caps[0]}..{caps[-1]} step 32",
+        grids=json.dumps(REBIN_GRIDS), overflow_on_two_cell_hop=True,
+        overflow_in_one_stage_alone=json.dumps(flags),
+        launches=rebin_shift.launches)
 
 
 def cut_planes(cap, dtype, device, nd=12):
@@ -809,29 +904,55 @@ def packed_views(planes, dims, cap):
     return packed, occ, starts, tab, meta, bool(feas), Wp
 
 
+def nx3_scene(dtype, device):
+    """Dense planes [3, 3, 8, 3*32] of 0-9 molecules a cell on 3^3 cells
+    of edge SCENE_CL, with 40 more at rc (1 + k eps) from others
+    (lj_scene): packed, each pencil is one group that takes both wrap
+    passes."""
+    counts = np.random.default_rng(3).integers(0, 10, size=(3, 3, 3))
+    return lj_scene((3, 3, 3), 32, SCENE_CL, counts, seed=3, near_rc=40,
+                    planes=8, dtype=dtype, device=device)
+
+
 def phase_k10(device):
-    """K10 vs its plain version on the cut RMM state packed into
-    pencils, whose first and last groups take the periodic-x wrap pass."""
+    """K10 vs its plain version on the cut RMM state packed into pencils
+    (cap 32 and 64; its first and last groups take the periodic-x wrap
+    passes), on the check scenes (sparse, full, near-rc) packed, and on
+    3^3 cells where groups wrap at both ends; each case's in-cutoff count
+    (each pair once) equal to the plain version's."""
     from ls1_mardyn_tpu_torch.ops.cuda_packed import (
         M_EHI, M_ELO, lj_forces_packed, lj_forces_packed_reference)
 
     for dtype, lim in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        cases = {}
         for cap in (32, 64):
             sim = cut_sim(cap, dtype, device)
-            nx, ny, nz = sim.spec.dims
-            packed, _, _, tab, meta, feas, Wp = packed_views(
-                sim.state.planes, sim.spec.dims, cap)
-            wraps = (int(meta[:, :, 0, M_ELO].sum()), int(meta[:, :, 0, M_EHI].sum()))
-            check(min(wraps) > 0, "K10: no wrap groups in the state")
+            cases[f"state{cap}"] = (sim.state.planes, sim.spec.dims, cap,
+                                    sim.spec.box, dict(eps24=sim.eps24, sig2=sim.sig2,
+                                                       shift6=sim.shift6, rc2=sim.rc2))
+        for name, r8 in check_scenes(32, dtype, device).items():
+            cases[name] = (r8, (6, 6, 6), 32, (6 * SCENE_CL,) * 3, SCENE_LJ)
+        cases["nx3"] = (nx3_scene(dtype, device), (3, 3, 3), 32, (3 * SCENE_CL,) * 3,
+                        SCENE_LJ)
+        errs, counts, wraps = {}, {}, {}
+        for tag, (planes, dims, cap, box, lj) in cases.items():
+            nx, ny, nz = dims
+            packed, _, _, tab, meta, feas, Wp = packed_views(planes, dims, cap)
+            wraps[tag] = (int(meta[:, :, 0, M_ELO].sum()), int(meta[:, :, 0, M_EHI].sum()))
+            check(min(wraps[tag]) > 0, f"K10 {tag}: no wrap groups at one end")
             pos4 = packed[:, :, :4].contiguous()
-            kw = dict(nx=nx, ny=ny, nz=nz, Wp=Wp, box=sim.spec.box, eps24=sim.eps24,
-                      sig2=sim.sig2, shift6=sim.shift6, rc2=sim.rc2)
-            err = max(rel_errors(lj_forces_packed(pos4, tab, meta, **kw),
-                                 lj_forces_packed_reference(pos4, tab, meta, **kw)))
-            say("K10", dtype=str(dtype).split(".")[1], cap=cap, grid=sim.spec.dims,
-                Wp=Wp, feasible=feas, wrap_groups=wraps, rel=f"{err:.2e}", limit=lim)
-            check(err <= lim,
-                  f"K10 disagrees with its plain version ({dtype}, cap {cap}): {err}")
+            kw = dict(nx=nx, ny=ny, nz=nz, Wp=Wp, box=box, **lj)
+            errs[tag] = max(rel_errors(lj_forces_packed(pos4, tab, meta, **kw),
+                                       lj_forces_packed_reference(pos4, tab, meta, **kw)))
+            counts[tag] = check_counts(f"K10 {tag} ({dtype})", pos4, kernel="packed",
+                                       tab=tab, meta=meta, nx=nx, ny=ny, nz=nz, Wp=Wp,
+                                       box=box, rc2=lj["rc2"])
+        say("K10", dtype=str(dtype).split(".")[1],
+            rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
+            inside_unordered=json.dumps(counts), counts_equal=True,
+            wrap_groups=json.dumps(wraps), limit=lim)
+        check(max(errs.values()) <= lim,
+              f"K10 disagrees with its plain version ({dtype}): {errs}")
     say("K10", launches=lj_forces_packed.launches)
 
 
@@ -1147,15 +1268,18 @@ def phase_main(device, smi):
         rebin_fallbacks=rsim.n_rebin_fallback,
         construct_s=round(t_build, 2), prepare_start_s=round(t_prep, 2),
         run_s=round(ms0 * steps / 1e3, 2), launches=json.dumps(launches))
-    check(launches["K1"] == steps + 1 and launches["K2"] >= 3,
+    check(launches["K1"] == steps + 1 and launches["K2"] >= 2,
           f"main path did not run both kernels ({launches})")
     # steady-state window: one whole rebin period
     win = rsim.rebin_every
     ms, _ = timed_window(sim, win)
+    # one whole shift rebin (ops/rmm.py: the Kahan fold, K2, the split
+    # back into planes and forces) on the window's end state
+    rebin_ms = cuda_ms(lambda: rsim._rebin_shift(rsim.state), 5)
     say("main", window_steps=win, ms_per_step=f"{ms:.3f}",
         updates_per_s=f"{N_MAIN / ms * 1e3:.4e}",
         peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
-        gpu=repr(smi))
+        rebin_fold_K2_split_ms=f"{rebin_ms:.3f}", gpu=repr(smi))
     return sim, launches
 
 
@@ -1486,7 +1610,8 @@ def ptxas_report(name):
     ops/_build.py keeps beside the library: {"f32"|"f64"|entry: {...}};
     a warp-skeleton kernel (csrc/lj_warp.cuh) as "f32 macro vi gram"
     with its template flags, e.g. "f32 100" (u6/virial, no Vi, no Gram),
-    K8's (csrc/lj_cells_n3l.cu) as "f32 macro"."""
+    K8's (csrc/lj_cells_n3l.cu) and K10's (csrc/lj_packed.cu) as "f32
+    macro"."""
     import re
 
     from ls1_mardyn_tpu_torch.ops import _build
@@ -1495,8 +1620,8 @@ def ptxas_report(name):
     for ln in _build.build_log(name).splitlines():
         if "Compiling entry function" in ln:
             ent = ln.split("'")[1]
-            warp = re.search(r"(?:warp_cells|n3l)_kernelI([fd])((?:Lb[01]E)+)",
-                             ent)
+            warp = re.search(
+                r"(?:warp_cells|n3l|packed)_kernelI([fd])((?:Lb[01]E)+)", ent)
             if warp:
                 cur = ("f32 " if warp.group(1) == "f" else "f64 ") + "".join(
                     re.findall(r"Lb([01])E", warp.group(2))[:3])
@@ -1837,7 +1962,10 @@ def phase_times(sim_rmm, sim_gen, smi):
                      bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
     # K2: one read and one write of the 11-column stack is what the
-    # function must move; its three stages move three times that
+    # function must move; its passes move about that: the hop pass reads
+    # the valid and coordinate columns and writes a byte a slot, the
+    # gather pass reads the codes (once from memory) and the occupied
+    # slots' 11 columns and writes every slot
     big = rsim._fold(st)
     kw2 = dict(dims=dims, cap=cap, cell_len=rsim.cell_len, sentinel=rsim.sentinel)
     k2_ms = cuda_ms(lambda: cuda_rebin.rebin_shift(big, **kw2), 10)
@@ -1846,10 +1974,17 @@ def phase_times(sim_rmm, sim_gen, smi):
     ob, _ = cuda_rebin.rebin_shift_reference(big, **kw2)
     k2_err = float((oa - ob).abs().max())
     check(k2_err == 0.0, "K2 at the main-path shape is not bit-identical")
-    nbytes = 2 * big.numel() * big.element_size()
+    size = big.element_size()
+    nbytes = 2 * big.numel() * size
+    slots = big.numel() // cuda_rebin.NCOLS
+    occupied = int((big[:, :, 3] > 0.5).sum())
+    hop_bytes = 4 * slots * size + slots
+    gather_bytes = slots + cuda_rebin.NCOLS * (occupied + slots) * size
     say("times", kernel="K2", ms=f"{k2_ms:.3f}", plain_ms=f"{p2_ms:.3f}",
-        bytes_in_and_out=nbytes, bytes_of_3_stages=3 * nbytes,
-        GBps_of_3_stages=f"{3 * nbytes / k2_ms / 1e6:.1f}",
+        bytes_in_and_out=nbytes, bytes_of_passes=hop_bytes + gather_bytes,
+        hop_pass_bytes=hop_bytes, gather_pass_bytes=gather_bytes,
+        GBps_of_passes=f"{(hop_bytes + gather_bytes) / k2_ms / 1e6:.1f}",
+        GBps_in_and_out=f"{nbytes / k2_ms / 1e6:.1f}",
         bound_ms=f"{nbytes / PEAK_BYTES * 1e3:.4f}", max_abs_err=k2_err,
         gpu=repr(smi))
     out["K2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=p2_ms,
@@ -1926,35 +2061,99 @@ def phase_times(sim_rmm, sim_gen, smi):
     return out
 
 
-def packed_pair_lanes(pos4, meta, nx):
-    """Pair lanes K10 walks on this state: per group of 32 lanes, its live
-    i lanes times the j lanes of its cell range in each forward pencil,
-    and in the wrap passes (csrc/lj_packed.cu)."""
-    from ls1_mardyn_tpu_torch.ops.cuda_packed import GSZ, POFFS
+def packed_warp_walk(pos4, tab, meta, nx, box, rc2):
+    """What K10's warps (csrc/lj_packed.cu) walk on this state, counted
+    here with torch from the same data: per group of 32 packed i (its
+    live lanes), the j lanes of its exact ranges in the 5 forward pencils
+    and the wrap passes staged (own-pencil lanes above the group's first),
+    those kept by the box cull against the live i's bounding box with
+    the pencil's y/z shift on the i side (boxdist2 < rc^2, rounded as the
+    kernel rounds it), and the j iterations walked: 32 steps for each
+    full round of 32 kept entries and one for each entry of the last.
+    Returns the totals and the means per group."""
+    from ls1_mardyn_tpu_torch.ops.cuda_packed import (
+        GSZ, M_CNT, M_EHI, M_ELO, M_NG, PCX, POFFS, PX, PY, PZ, T_CB)
 
     nz, ny, _, Wp = pos4.shape
-    dev = pos4.device
-    cnt = meta[:, :, 0, 3].long()
+    dtype, dev = pos4.dtype, pos4.device
+    clx, cly, clz = (float(b) / n for b, n in zip(box, (nx, ny, nz)))
+    G = Wp // GSZ
+    cnt = meta[:, :, 0, M_CNT].long()
+    t = torch.arange(G, device=dev)
+    gvalid = t < meta[:, :, 0, M_NG, None].long()
+    wlo = t < meta[:, :, 0, M_ELO, None].long()
+    whi = t >= (meta[:, :, 0, M_NG] - meta[:, :, 0, M_EHI])[..., None].long()
     q = torch.arange(Wp, device=dev)
-    cx = torch.where(q < cnt[..., None], pos4[:, :, 3].long(), nx)
+    live = (q < cnt[..., None]).reshape(nz, ny, G, GSZ)
+    cxl = torch.where(q < cnt[..., None], pos4[:, :, PCX].long(), nx)
     starts = torch.searchsorted(
-        cx.reshape(-1, Wp).contiguous(),
+        cxl.reshape(-1, Wp).contiguous(),
         torch.arange(nx + 1, device=dev).expand(nz * ny, -1).contiguous(),
     ).reshape(nz, ny, nx + 1)
-    first = torch.arange(0, Wp, GSZ, device=dev).expand(nz, ny, -1)
+    cb = tab[:, :, :, T_CB].long()
+    cbl = cb.repeat_interleave(GSZ, dim=2).to(dtype)
+    xi = (pos4[:, :, PX] + (pos4[:, :, PCX] - cbl) * clx).reshape(nz, ny, G, GSZ)
+    yi = pos4[:, :, PY].reshape(nz, ny, G, GSZ)
+    zi = pos4[:, :, PZ].reshape(nz, ny, G, GSZ)
+    big = torch.finfo(dtype).max
+
+    def box_of(a):
+        return (torch.where(live, a, big).amin(-1)[..., None],
+                torch.where(live, a, -big).amax(-1)[..., None])
+
+    (lox, hix), (loy, hiy), (loz, hiz) = box_of(xi), box_of(yi), box_of(zi)
+    first = t * GSZ
     n_i = torch.clamp(cnt[..., None] - first, 0, GSZ)
-    last = torch.clamp(torch.minimum(first + GSZ - 1, cnt[..., None] - 1), min=0)
-    cf, cl = torch.gather(cx, 2, first), torch.gather(cx, 2, last)
-    lo = torch.clamp(cf - 1, min=0)
-    hi = torch.clamp(cl + 1, max=nx - 1)
-    total = 0
-    for dz, dy in POFFS:
-        sk = torch.roll(starts, (-dz, -dy), (0, 1))
-        main = torch.gather(sk, 2, hi + 1) - torch.gather(sk, 2, lo)
-        wrap = (cf == 0) * (sk[..., nx] - sk[..., nx - 1])[..., None] \
-            + (cl == nx - 1) * (sk[..., 1] - sk[..., 0])[..., None]
-        total += int((n_i * (main + wrap)).sum())
-    return total
+    cf = torch.gather(cxl, 2, first.expand(nz, ny, -1))
+    cl = torch.gather(cxl, 2, torch.clamp(first + n_i - 1, min=0))
+    staged = torch.zeros((nz, ny, G), dtype=torch.long, device=dev)
+    kept = torch.zeros_like(staged)
+
+    def gap(x, lo, hi):
+        a, b = lo - x, x - hi
+        return torch.where(a > 0, a, torch.where(b > 0, b, torch.zeros_like(x)))
+
+    for pas, gm, cbj, ca, ce in (
+            (0, gvalid, cb, torch.clamp(cf - 1, min=0), torch.clamp(cl + 1, max=nx - 1)),
+            (1, gvalid & wlo, cb + nx, torch.full_like(cf, nx - 1),
+             torch.full_like(cf, nx - 1)),
+            (2, gvalid & whi, cb - nx, torch.zeros_like(cf), cl + 1 - nx)):
+        for k, (dz, dy) in enumerate(POFFS):
+            sk = torch.roll(starts, (-dz, -dy), (0, 1))
+            pk = torch.roll(pos4, (-dz, -dy), (0, 1))
+            j0 = torch.gather(sk, 2, torch.clamp(ca, 0, nx))
+            j1 = torch.gather(sk, 2, torch.clamp(ce + 1, 0, nx))
+            if k == 0:
+                j0 = torch.maximum(j0, first + 1)
+            n = torch.where(gm, torch.clamp(j1 - j0, min=0), 0)
+            L = int(n.max()) if n.numel() else 0
+            if L == 0:
+                continue
+            lanes = j0[..., None] + torch.arange(L, device=dev)
+            inr = torch.arange(L, device=dev) < n[..., None]
+            lanes = torch.clamp(lanes, 0, Wp - 1).reshape(nz, ny, -1)
+
+            def jcol(c):
+                return torch.gather(pk[:, :, c], 2, lanes).reshape(nz, ny, G, L)
+
+            xj = jcol(PX) + (jcol(PCX) - cbj[..., None].to(dtype)) * clx
+            sy = torch.tensor(dy * cly, dtype=dtype, device=dev)
+            sz = torch.tensor(dz * clz, dtype=dtype, device=dev)
+            gx = gap(xj, lox, hix)
+            gy = gap(jcol(PY), loy - sy, hiy - sy)
+            gz = gap(jcol(PZ), loz - sz, hiz - sz)
+            bd2 = gx * gx + gy * gy + gz * gz
+            staged += inr.sum(-1)
+            kept += (inr & (bd2 < rc2)).sum(-1)
+    ng = int(gvalid.sum())
+    return {"groups": ng, "live_i_per_group": round(float(n_i.sum()) / ng, 2),
+            "j_staged": int(staged.sum()), "j_kept": int(kept.sum()),
+            "culled_share": round(1.0 - float(kept.sum()) / float(staged.sum()), 4),
+            "j_staged_per_group": round(float(staged.sum()) / ng, 1),
+            "j_kept_per_group": round(float(kept.sum()) / ng, 1),
+            "j_iterations": int(kept.sum()),
+            "full_rounds_share": round(float((kept // 32 * 32).sum())
+                                       / float(kept.sum()), 4)}
 
 
 def variant_times(rsim, r4, smi, lj_times):
@@ -2017,10 +2216,10 @@ def variant_times(rsim, r4, smi, lj_times):
                                              local_coords=True))),
                 ptxas=json.dumps(ptxas_report("lj_cells_lanej")))
         if key == "K8":
+            k8_half = lj_warp_walk(r4, dims, cap, rsim.cell_len, rsim.rc2, half=True)
             more.update(walk=json.dumps(lj_warp_walk(
                 r4, dims, cap, rsim.cell_len, rsim.rc2)),
-                walk_half=json.dumps(lj_warp_walk(
-                    r4, dims, cap, rsim.cell_len, rsim.rc2, half=True)),
+                walk_half=json.dumps(k8_half),
                 ptxas=json.dumps(ptxas_report("lj_cells_n3l")))
         if key == "K9":
             more.update(walk=json.dumps(lj_warp_walk(
@@ -2029,9 +2228,10 @@ def variant_times(rsim, r4, smi, lj_times):
                     r4, dims, cap, rsim.cell_len, rsim.rc2, gram=True)),
                 ptxas=json.dumps(ptxas_report("lj_cells_zb")))
         if key == "K10":
-            lanes = packed_pair_lanes(pos4, meta, nx)
-            more.update(Wp=Wp, feasible=feas, pair_lanes=lanes,
-                        pair_lanes_per_s=f"{lanes / res[False][0] * 1e3:.4e}")
+            more.update(Wp=Wp, feasible=feas, walk=json.dumps(packed_warp_walk(
+                pos4, tab, meta, nx, rsim.spec.box, rsim.rc2)),
+                K8_j_iterations=k8_half["j_iterations"],
+                ptxas=json.dumps(ptxas_report("lj_packed")))
         say("times", kernel=key, grid=dims, cap=cap, ms_fast=f"{res[False][0]:.3f}",
             plain_ms_fast=f"{res[False][1]:.3f}", ms_macro=f"{res[True][0]:.3f}",
             plain_ms_macro=f"{res[True][1]:.3f}", K1_ms=f"{k1_ms:.3f}",

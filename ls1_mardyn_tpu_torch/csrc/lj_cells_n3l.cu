@@ -41,7 +41,9 @@
 //     to the entry's sums in shared memory with atomics; then one lane an
 //     entry adds them to f.  Nothing assumes that the lanes of a warp run
 //     in lockstep.  The i forces go to f by atomics at the end of the
-//     warp, so the wrapper zeroes f;
+//     warp, so the wrapper zeroes f.  The rotation, the skewed walk and
+//     the flush are lj_warp.cuh's, shared with K10 (lj_packed.cu); the
+//     pair test is this kernel's;
 //   * u6 and the virial counted once per pair (block_macro, scale 1).
 // The atomics make the order of the sums, and so the last bits of f, vary
 // from run to run: f agrees with the plain version to rounding.
@@ -63,18 +65,13 @@
 
 namespace {
 
+using ljw::add_to;
+using ljw::flush;
 using ljw::FULL;
 using ljw::J4;
+using ljw::Reactions;
 using ljw::RING;
 using ljw::WARPS;
-
-// Per warp, beside the ring of staged j: the reaction sums of each entry
-// and the offset of its j slot in f (plane x; y and z at +W and +2W).
-template <typename T>
-struct Reactions {
-  T x[RING], y[RING], z[RING];
-  int o[RING];
-};
 
 // The pair of i `me` and a staged j if it lies inside the cutoff and j
 // is a later slot of the own cell or a slot of a forward cell: its terms
@@ -105,62 +102,12 @@ __device__ __forceinline__ bool half_pair(const J4<T>& me, const J4<T>& j,
   return false;
 }
 
-// (x, y, z) added to the slot at o (planes W apart), unless all are 0
-template <typename T>
-__device__ __forceinline__ void add_to(T* o, long long W, T x, T y, T z) {
-  if (x != T(0) || y != T(0) || z != T(0)) {
-    atomicAdd(o, x);
-    atomicAdd(o + W, y);
-    atomicAdd(o + 2 * W, z);
-  }
-}
-
-// The last, partial round: one i `me` against the entries (tail + k) %
-// RING, k < n (n < 32), of its half (k = h, h + WAYS, ...), skewed: the
-// lane of rank l in its half takes the entry of rank (l + b) mod m of the
-// half's m at step b; the reactions go to the entries' sums by shared
-// atomics (two lanes may take one entry where m is below the lanes of a
-// half).
-template <typename T, bool MACRO, int WAYS>
-__device__ __forceinline__ void walk_skewed(const J4<T>* ring, Reactions<T>& re,
-                                            int tail, int n, const J4<T>& me,
-                                            const ljk::LJ<T>& lj,
-                                            ljk::Acc<T>& a) {
-  constexpr int S = 32 / WAYS;
-  const int lane = threadIdx.x & 31, h = lane / S, l = lane & (S - 1);
-  const int m = (n - h + WAYS - 1) / WAYS;
-  if (m <= 0) return;
-  int q = l % m;
-  for (int b = 0; b < S; ++b) {  // a compile-time bound: the loop unrolls
-    if (b >= m) break;
-    const int e = (tail + q * WAYS + h) & (RING - 1);
-    T px, py, pz;
-    if (half_pair<T, MACRO>(me, ring[e], lj, a, px, py, pz)) {
-      atomicAdd(re.x + e, -px);
-      atomicAdd(re.y + e, -py);
-      atomicAdd(re.z + e, -pz);
-    }
-    if (++q == m) q = 0;
-  }
-}
-
-// The reactions of the entries (tail + k) % RING, k < n, added to f: one
-// entry a lane.
-template <typename T>
-__device__ __forceinline__ void flush(const Reactions<T>& re, int tail, int n,
-                                      T* f, long long W) {
-  const int lane = threadIdx.x & 31;
-  if (lane < n) {
-    const int e = (tail + lane) & (RING - 1);
-    add_to(f + re.o[e], W, re.x[e], re.y[e], re.z[e]);
-  }
-}
-
-// A full round by register rotation: the lane of rank l in its half holds
-// the half's entry of rank (l + b) mod S and its reaction at step b, and
-// passes both to the lane below it; every lane of the warp takes part in
-// the shuffles, a lane without a valid i only passes them on.  Ends with
-// each entry's reaction added to f by the lane that holds it.
+// A full round by register rotation (ljw::rotate): the lane of rank l in
+// its half starts with the half's entry of rank l and a zero reaction,
+// meets its i at each step and passes entry and reaction to the lane
+// below; every lane of the warp takes part in the shuffles, a lane
+// without a valid i only passes them on.  Ends with each entry's
+// reaction added to f by the lane that holds it.
 template <typename T, bool MACRO, int WAYS>
 __device__ __forceinline__ void walk_rotate(const J4<T>* ring,
                                             const Reactions<T>& re, int tail,
@@ -169,28 +116,33 @@ __device__ __forceinline__ void walk_rotate(const J4<T>* ring,
                                             T* f, long long W) {
   constexpr int S = 32 / WAYS;
   const int lane = threadIdx.x & 31, h = lane / S, l = lane & (S - 1);
-  const int src = (lane & ~(S - 1)) | ((l + 1) & (S - 1));
   J4<T> j = ring[(tail + l * WAYS + h) & (RING - 1)];
   T rx = T(0), ry = T(0), rz = T(0);
-  for (int b = 0; b < S; ++b) {
+  ljw::rotate<T, S>(j, rx, ry, rz, [&](const J4<T>& jj, T& sx, T& sy, T& sz) {
     T px, py, pz;
-    if (live && half_pair<T, MACRO>(me, j, lj, a, px, py, pz)) {
-      rx -= px;
-      ry -= py;
-      rz -= pz;
+    if (live && half_pair<T, MACRO>(me, jj, lj, a, px, py, pz)) {
+      sx -= px;
+      sy -= py;
+      sz -= pz;
     }
-    if (b + 1 < S) {
-      j.x = __shfl_sync(FULL, j.x, src);
-      j.y = __shfl_sync(FULL, j.y, src);
-      j.z = __shfl_sync(FULL, j.z, src);
-      j.w = __shfl_sync(FULL, j.w, src);
-      rx = __shfl_sync(FULL, rx, src);
-      ry = __shfl_sync(FULL, ry, src);
-      rz = __shfl_sync(FULL, rz, src);
-    }
-  }
+  });
   const int e = (tail + ((l + S - 1) & (S - 1)) * WAYS + h) & (RING - 1);
   add_to(f + re.o[e], W, rx, ry, rz);
+}
+
+// The last, partial round (ljw::walk_skewed), split in two halves or not
+template <typename T, bool MACRO>
+__device__ __forceinline__ void walk_last(int ways, const J4<T>* ring,
+                                          Reactions<T>& re, int tail, int n,
+                                          const J4<T>& me, const ljk::LJ<T>& lj,
+                                          ljk::Acc<T>& a) {
+  const auto pair = [&](const J4<T>& j, int, T& px, T& py, T& pz) {
+    return half_pair<T, MACRO>(me, j, lj, a, px, py, pz);
+  };
+  if (ways == 2)
+    ljw::walk_skewed<T, 2>(ring, re, tail, n, pair);
+  else
+    ljw::walk_skewed<T, 1>(ring, re, tail, n, pair);
 }
 
 // Forces on every slot of r[nz, ny, P, nx*cap] into f[nz, ny, 3, nx*cap]
@@ -267,12 +219,7 @@ __global__ void __launch_bounds__(WARPS * 32)
         }
       }
       // the last round, partial
-      if (c.live) {
-        if (c.ways == 2)
-          walk_skewed<T, MACRO, 2>(ring, re, head - cnt, cnt, c.me, lj, acc);
-        else
-          walk_skewed<T, MACRO, 1>(ring, re, head - cnt, cnt, c.me, lj, acc);
-      }
+      if (c.live) walk_last<T, MACRO>(c.ways, ring, re, head - cnt, cnt, c.me, lj, acc);
       __syncwarp();
       flush(re, head - cnt, cnt, f, W);
       // the i forces: other warps add reactions to the same slots

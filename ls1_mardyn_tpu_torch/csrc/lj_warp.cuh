@@ -11,7 +11,11 @@
 // lie, and their image shift) and adds its extern "C" entry points.  K8
 // (Newton's third law by the half shell) has a kernel of its own in
 // lj_cells_n3l.cu built from the pieces here: warp_cell, i_chunk (the i
-// compaction, the split and the bounding box) and to_slot.
+// compaction, the split and the bounding box) and to_slot; so has K10
+// (lj_packed.cu, the half shell on packed pencils: warp_min/warp_max and
+// gap for its box cull).  Both take the half-shell pieces at the end of
+// this header: the reactions' register rotation (rotate), the skewed
+// last round (walk_skewed) and its flush.
 //
 // What bounded the block skeleton this replaced (one block of 128/cap
 // cells, one thread an i slot, each neighbour cell staged in shared
@@ -458,6 +462,109 @@ __global__ void __launch_bounds__(WARPS * 32)
     }
   }
   if (MACRO) ljk::block_macro(acc.u6, acc.vir, part);
+}
+
+// -- Newton's third law: the half shell of K8 (lj_cells_n3l.cu) and K10
+// (lj_packed.cu).  Each pair is evaluated once, by the i side; its
+// reaction -F_ij goes to the j entry.  A ring entry's w tells the half
+// shell: an own-cell (own-pencil) entry carries its slot (lane), a
+// forward one a value above every i's, and the pair counts when j.w >
+// i.w.  Reactions travel in one of two ways, and nothing assumes that
+// the lanes of a warp run in lockstep:
+//   * a full round of 32 entries by register rotation (rotate): each
+//     lane holds one item and three sums, meets what its lane holds
+//     fixed, and passes item and sums on to the lane below by shuffles,
+//     so no two lanes ever add to the same sum.  K8 rotates the j
+//     entries and their reactions past fixed i; K10 rotates its i and
+//     their forces past fixed j entries, because its i side carries the
+//     pencil's y/z shift (see lj_packed.cu);
+//   * the last, partial round skewed (walk_skewed): the lane of rank l
+//     takes the entry of rank (l + b) mod m at step b and adds the
+//     reaction to the entry's sums in shared memory with atomics (two
+//     lanes may take one entry when m is below the lanes); then one lane
+//     an entry adds them to f (flush).
+// Reactions and i forces reach f by global atomics (f32 and f64 are
+// native on sm_90), so the order of the sums varies from run to run.
+
+// Per warp, beside the ring of staged j: the reaction sums of each entry
+// (the skewed round's) and the offset of its j slot in f (plane x; y and
+// z one plane stride W apart).
+template <typename T>
+struct Reactions {
+  T x[RING], y[RING], z[RING];
+  int o[RING];
+};
+
+// (x, y, z) added to the slot at o (planes W apart), unless all are 0
+template <typename T>
+__device__ __forceinline__ void add_to(T* o, long long W, T x, T y, T z) {
+  if (x != T(0) || y != T(0) || z != T(0)) {
+    atomicAdd(o, x);
+    atomicAdd(o + W, y);
+    atomicAdd(o + 2 * W, z);
+  }
+}
+
+// The last, partial round, skewed: the entries (tail + k) % RING, k < n
+// (n < 32), of the lane's half (k = h, h + WAYS, ...); the lane of rank l
+// in its half takes the entry of rank (l + b) mod m of the half's m at
+// step b.  pair(j, e, px, py, pz) evaluates the lane's i with entry j
+// (ring slot e), adds the terms on i and returns the force on i if the
+// pair counts; the reaction goes to the entry's sums by shared atomics.
+template <typename T, int WAYS, typename Pair>
+__device__ __forceinline__ void walk_skewed(const J4<T>* ring, Reactions<T>& re,
+                                            int tail, int n, const Pair& pair) {
+  constexpr int S = 32 / WAYS;
+  const int lane = threadIdx.x & 31, h = lane / S, l = lane & (S - 1);
+  const int m = (n - h + WAYS - 1) / WAYS;
+  if (m <= 0) return;
+  int q = l % m;
+  for (int b = 0; b < S; ++b) {  // a compile-time bound: the loop unrolls
+    if (b >= m) break;
+    const int e = (tail + q * WAYS + h) & (RING - 1);
+    T px, py, pz;
+    if (pair(ring[e], e, px, py, pz)) {
+      atomicAdd(re.x + e, -px);
+      atomicAdd(re.y + e, -py);
+      atomicAdd(re.z + e, -pz);
+    }
+    if (++q == m) q = 0;
+  }
+}
+
+// The reactions of the entries (tail + k) % RING, k < n, added to f: one
+// entry a lane.
+template <typename T>
+__device__ __forceinline__ void flush(const Reactions<T>& re, int tail, int n,
+                                      T* f, long long W) {
+  const int lane = threadIdx.x & 31;
+  if (lane < n) {
+    const int e = (tail + lane) & (RING - 1);
+    add_to(f + re.o[e], W, re.x[e], re.y[e], re.z[e]);
+  }
+}
+
+// A round by register rotation in halves of S lanes: step(v, sx, sy, sz)
+// S times, and between two steps v and its sums passed on to the lane
+// below (the lane of rank l in its half takes them from rank l + 1 mod
+// S).  After the round the lane of rank l holds what rank l - 1 held.
+template <typename T, int S, typename Step>
+__device__ __forceinline__ void rotate(J4<T>& v, T& sx, T& sy, T& sz,
+                                       const Step& step) {
+  const int lane = threadIdx.x & 31;
+  const int src = (lane & ~(S - 1)) | ((lane + 1) & (S - 1));
+  for (int b = 0; b < S; ++b) {
+    step(v, sx, sy, sz);
+    if (b + 1 < S) {
+      v.x = __shfl_sync(FULL, v.x, src);
+      v.y = __shfl_sync(FULL, v.y, src);
+      v.z = __shfl_sync(FULL, v.z, src);
+      v.w = __shfl_sync(FULL, v.w, src);
+      sx = __shfl_sync(FULL, sx, src);
+      sy = __shfl_sync(FULL, sy, src);
+      sz = __shfl_sync(FULL, sz, src);
+    }
+  }
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch.  HAS_VI and

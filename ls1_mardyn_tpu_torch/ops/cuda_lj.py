@@ -22,9 +22,10 @@ cells that are valid and within the cutoff of its i slots' bounding
 box).  The launch_* functions are the launches behind the wrappers, on
 checked inputs; they raise for a CPU tensor unless the library was
 built for the CPU (tools/cuda_emu.py).  inside_pairs counts the pairs
-inside the cutoff that K1, K3, K4, K7, K8 or K9 evaluates (a launch with
-eps24 = 0 and shift6 = 1; ordered pairs, unordered for K8), exactly, for
-the kernels' bound and its check against the plain version's count.
+inside the cutoff that K1, K3, K4, K7, K8, K9 or K10 evaluates (a launch
+with eps24 = 0 and shift6 = 1; ordered pairs, unordered for K8 and K10),
+exactly, for the kernels' bound and its check against the plain
+version's count.
 """
 
 from __future__ import annotations
@@ -383,15 +384,22 @@ def pairs_from_part(part, halved=True):
     return int(round(2.0 * total if halved else total))
 
 
-def inside_pairs_reference(r_i, r_j=None, *, dims, cap, rc2, cell_len=None,
-                           z_halo=False, kernel="K3", **row):
+def inside_pairs_reference(r_i, r_j=None, *, dims=None, cap=None, rc2,
+                           cell_len=None, z_halo=False, kernel="K3", **row):
     """Pairs inside the cutoff that the plain version of a kernel
     evaluates on these inputs, counted from its masks: ordered pairs of
     K3 (K1's and K9's with r_j None), K4 (kernel="row", r_j its j view,
     `row` its box, hx, local_coords and y_halo), K7 (kernel="lanej": K4's
     in local mode with one x halo cell, `row` its box) or K9's Gram form
     (kernel="zb_gram", whose r^2 is the Gram one); unordered pairs of K8
-    (kernel="n3l", r_j None)."""
+    (kernel="n3l", r_j None) and of K10 (kernel="packed": r_i its pos4,
+    `row` its tab, meta, nx, ny, nz, Wp and box)."""
+    if kernel == "packed":
+        from ls1_mardyn_tpu_torch.ops.cuda_packed import lj_forces_packed_reference
+
+        return lj_forces_packed_reference(
+            r_i, row.pop("tab"), row.pop("meta"), eps24=0.0, sig2=0.0,
+            shift6=0.0, rc2=rc2, compute_macro=False, count=True, **row)
     nx, ny, nz = dims
     if kernel == "n3l":
         from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import (
@@ -420,15 +428,22 @@ def inside_pairs_reference(r_i, r_j=None, *, dims, cap, rc2, cell_len=None,
 def inside_pairs(r_i, r_j=None, *, kernel="K3", **kw):
     """Pairs inside the cutoff that a kernel evaluates on these inputs:
     its launch with eps24 = 0 and shift6 = 1, counted by pairs_from_part
-    (ordered pairs; unordered for K8).  kernel: "K3" (r_j, z_halo), "K1"
-    (r_j None), "row" (K4: r_j its j view, and its box, hx,
+    (ordered pairs; unordered for K8 and K10).  kernel: "K3" (r_j,
+    z_halo), "K1" (r_j None), "row" (K4: r_j its j view, and its box, hx,
     local_coords, z_halo, y_halo), "lanej" (K7: r_j its j view, and its
     box), "n3l" (K8, r_j None), "zb" or "zb_gram" (K9 plain or Gram, r_j
-    None); kw: dims, cap, rc2 and cell_len (all but K4 and K7), and the
-    kernel's options.  A CPU tensor counts the plain version's pairs
-    (inside_pairs_reference)."""
+    None), "packed" (K10: r_i its pos4; kw its tab, meta, nx, ny, nz, Wp,
+    box and rc2); kw: dims, cap, rc2 and cell_len (all but K4, K7 and
+    K10), and the kernel's options.  A CPU tensor counts the plain
+    version's pairs (inside_pairs_reference)."""
     if r_i.device.type == "cpu":
         return inside_pairs_reference(r_i, r_j, kernel=kernel, **kw)
+    if kernel == "packed":
+        from ls1_mardyn_tpu_torch.ops.cuda_packed import launch_lj_packed
+
+        _, part = launch_lj_packed(r_i, kw.pop("tab"), kw.pop("meta"), eps24=0.0,
+                                   sig2=0.0, shift6=1.0, parts=True, **kw)
+        return pairs_from_part(part, halved=False)
     kw.update(eps24=0.0, sig2=0.0, shift6=1.0, parts=True)
     if kernel in ("K1", "n3l", "zb", "zb_gram"):
         if r_j is not None or kw.pop("z_halo", False):

@@ -20,7 +20,11 @@ each group's exact j cell range in the cx plane, so the 128-lane window
 limit that build_tables reports as `feasible` (a TPU alignment rule)
 does not bind it.  A wrapper takes the plain version only for a CPU
 tensor; a CUDA tensor launches the kernel (built at first use) or
-raises.
+raises.  launch_lj_packed is the launch behind the wrapper, on checked
+inputs (it takes a CPU tensor only with a library built for the CPU,
+tools/cuda_emu.py); ops/cuda_lj.inside_pairs(kernel="packed") counts
+the pairs inside the cutoff that the kernel evaluates (a launch with
+eps24 = 0 and shift6 = 1), exactly.
 """
 
 from __future__ import annotations
@@ -219,14 +223,16 @@ def build_tables(occ, starts, cnt, *, nx: int, Wp: int):
 # ---------------------------------------------------------------------------
 
 def lj_forces_packed_reference(pos4, tab, meta, *, nx, ny, nz, Wp, box, eps24,
-                               sig2, shift6, rc2, compute_macro=True):
+                               sig2, shift6, rc2, compute_macro=True,
+                               count=False):
     """Plain PyTorch version of K10, per pencil on the packed lanes: the
     molecules of each cell (a run of lanes, found from the cx plane) meet
     those of the cells dx = -1, 0, +1 of the 5 forward pencils, recentred
     on the i lane's group base cell cb as the kernel recentres them
     (x'' = x + (cx - cb)*clx; a j cell across the x wrap one box length
     away).  In the own pencil a pair counts when j's lane is above i's.
-    Each pair once; the reaction goes to j with index_add_."""
+    Each pair once; the reaction goes to j with index_add_.  count=True
+    returns the number of pairs inside the cutoff instead."""
     dtype, dev = pos4.dtype, pos4.device
     clx, cly, clz = (float(b) / n for b, n in zip(box, (nx, ny, nz)))
     cnt = meta[:, :, 0, M_CNT].long()
@@ -260,6 +266,7 @@ def lj_forces_packed_reference(pos4, tab, meta, *, nx, ny, nz, Wp, box, eps24,
     zs = torch.arange(nz, device=dev)
     ys = torch.arange(ny, device=dev)
     cs = torch.arange(nx, device=dev)
+    n_inside = 0
     zc = max(1, min(nz, _REF_CHUNK // (ny * nx * cap * cap)))
     for z0 in range(0, nz, zc):
         z1 = min(nz, z0 + zc)
@@ -294,6 +301,9 @@ def lj_forces_packed_reference(pos4, tab, meta, *, nx, ny, nz, Wp, box, eps24,
                 m = oki[..., :, None] & okj[..., None, :] & (dr2 < rc2)
                 if k == 0:
                     m = m & (lj_[..., None, :] > li[..., :, None])
+                if count:
+                    n_inside += int(m.sum())
+                    continue
                 zz, yy, xx, si, sj = m.nonzero(as_tuple=True)
                 dr = torch.stack([ddx[zz, yy, xx, si, sj], ddy[zz, yy, xx, si, sj],
                                   ddz[zz, yy, xx, si, sj]], -1)
@@ -306,6 +316,8 @@ def lj_forces_packed_reference(pos4, tab, meta, *, nx, ny, nz, Wp, box, eps24,
                 if compute_macro:
                     u6 += (u6p + shift6).sum()
                     vir += (fp * dr).sum()
+    if count:
+        return n_inside
     f = f.reshape(nz, ny, Wp, 3).permute(0, 1, 3, 2).contiguous()
     return f, u6, vir
 
@@ -313,8 +325,9 @@ def lj_forces_packed_reference(pos4, tab, meta, *, nx, ny, nz, Wp, box, eps24,
 _VP, _CI, _CD = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
 
-def _lib():
-    lib = _build.load("lj_packed")
+def type_lib(lib):
+    """Set the argument and result types of a loaded csrc/lj_packed.cu
+    library's entry points (once); returns it."""
     if not getattr(lib, "_typed", False):
         for suffix in ("_f32", "_f64"):
             fn = getattr(lib, "lj_packed" + suffix)
@@ -324,6 +337,10 @@ def _lib():
         lib.lj_packed_num_blocks.restype = _CI
         lib._typed = True
     return lib
+
+
+def _lib():
+    return type_lib(_build.load("lj_packed"))
 
 
 def lj_forces_packed(pos4, tab, meta, *, nx, ny, nz, Wp, box, eps24, sig2,
@@ -363,22 +380,38 @@ def lj_forces_packed(pos4, tab, meta, *, nx, ny, nz, Wp, box, eps24, sig2,
         raise ValueError(f"{what}: device {pos4.device}")
     if not (pos4.is_contiguous() and tab.is_contiguous() and meta.is_contiguous()):
         raise ValueError(f"{what}: pos4, tab and meta must be contiguous")
+    out = launch_lj_packed(pos4, tab, meta, **kw)
+    lj_forces_packed.launches += 1
+    return out
+
+
+lj_forces_packed.launches = 0
+
+
+def launch_lj_packed(pos4, tab, meta, *, nx, ny, nz, Wp, box, eps24, sig2,
+                     shift6, rc2, compute_macro=True, parts=False):
+    """The launch of csrc/lj_packed.cu behind lj_forces_packed, on checked
+    inputs (f zeroed first: the kernel adds into it): (f, u6, vir), or
+    (f, part) with `parts` (the per-block sums part[block] = (u6,
+    vir))."""
     lib = _lib()
+    gmax = Wp // GSZ
+    cl = tuple(float(b) / n for b, n in zip(box, (nx, ny, nz)))
     f = torch.zeros((nz, ny, 3, Wp), dtype=pos4.dtype, device=pos4.device)
     part = torch.empty((lib.lj_packed_num_blocks(nz, ny, gmax), 2),
                        dtype=pos4.dtype, device=pos4.device)
     fn = lib.lj_packed_f32 if pos4.dtype == torch.float32 else lib.lj_packed_f64
-    stream = torch.cuda.current_stream(pos4.device).cuda_stream
     _build.check(fn(pos4.data_ptr(), tab.data_ptr(), meta.data_ptr(),
                     f.data_ptr(), part.data_ptr(), nx, ny, nz, Wp, gmax, *cl,
                     float(eps24), float(sig2), float(shift6), float(rc2),
-                    int(bool(compute_macro)), stream), what)
-    lj_forces_packed.launches += 1
+                    int(bool(compute_macro)),
+                    _build.stream_of(lib, pos4, "lj_forces_packed")),
+                 "lj_forces_packed")
+    if parts:
+        return f, part
     if compute_macro:
         u6, vir = part.sum(0).unbind()
     else:
         u6 = vir = torch.zeros((), dtype=pos4.dtype, device=pos4.device)
     return f, u6, vir
 
-
-lj_forces_packed.launches = 0

@@ -1,11 +1,15 @@
-"""Kernel K2: the 3-stage nearest-neighbour shift-merge rebin.
+"""Kernel K2: the nearest-neighbour shift-merge rebin.
 
-The CUDA kernel (csrc/rebin_shift.cu, one launch per stage) replaces
-the TPU kernel ls1_mardyn_tpu/ops/pallas_rebin.py: rebin_shift_pallas.
-Its plain PyTorch version, `rebin_shift_reference`, is a line-for-line
-port of ls1_mardyn_tpu/ops/rmm.py: RMMSimulation._rebin_shift (after
-its Kahan fold, which stays with the caller).  All three are
-bit-identical.
+The CUDA kernel (csrc/rebin_shift.cu: a hop-code pass and a gather
+pass, two launches a call) replaces the TPU kernel
+ls1_mardyn_tpu/ops/pallas_rebin.py: rebin_shift_pallas, whose three
+stages (x, y, z) it computes in two passes over memory.  Its plain
+PyTorch version, `rebin_shift_reference`, is a line-for-line port of
+ls1_mardyn_tpu/ops/rmm.py: RMMSimulation._rebin_shift (after its Kahan
+fold, which stays with the caller).  All three are bit-identical, and so
+is the overflow flag; where the flag is set the caller discards the
+output, and the kernel's output there is not the stages' (a cell that
+overflows keeps its first cap molecules in the final order).
 
 Data: big [nz, ny, 11, nx*cap], columns (x, y, z, valid, vx, vy, vz,
 mid, fx, fy, fz) in cell-local coordinates.
@@ -90,11 +94,16 @@ def rebin_shift_reference(big, *, dims, cap, cell_len, sentinel):
 
 
 def _lib():
-    lib = _build.load("rebin_shift")
+    return type_lib(_build.load("rebin_shift"))
+
+
+def type_lib(lib):
+    """Set the argument and result types of a loaded csrc/rebin_shift.cu
+    library's entry points (once); returns it."""
     if not getattr(lib, "_typed", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        for fn in (lib.rebin_stage_f32, lib.rebin_stage_f64):
-            fn.argtypes = [vp, vp, vp] + [ci] * 5 + [cd, ci, vp]
+        for fn in (lib.rebin_shift_f32, lib.rebin_shift_f64):
+            fn.argtypes = [vp] * 4 + [ci] * 4 + [cd] * 3 + [ci, vp]
             fn.restype = ci
         lib._typed = True
     return lib
@@ -105,8 +114,9 @@ def rebin_shift(big, *, dims, cap, cell_len, sentinel):
     Returns (out, overflow) as rebin_shift_reference does.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel three times (x, y, z stage; built at first use) or raises.
-    `rebin_shift.launches` counts kernel launches, three per call."""
+    kernel (built at first use) or raises.  `rebin_shift.launches`
+    counts kernel launches, two per call (the hop pass and the gather
+    pass)."""
     nx, ny, nz = dims
     if big.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"rebin_shift: dtype {big.dtype} (f32/f64 only)")
@@ -123,22 +133,25 @@ def rebin_shift(big, *, dims, cap, cell_len, sentinel):
         return rebin_shift_reference(big, **kw)
     if big.device.type != "cuda":
         raise ValueError(f"rebin_shift: device {big.device}")
-    lib = _lib()
-    fn = lib.rebin_stage_f32 if big.dtype == torch.float32 else lib.rebin_stage_f64
-    stream = torch.cuda.current_stream(big.device).cuda_stream
-    ovf = torch.zeros((1,), dtype=torch.int32, device=big.device)
-    bufs = (torch.empty_like(big), torch.empty_like(big))
-    src = big
-    for axis in range(3):
-        dst = bufs[axis % 2]
-        status = fn(
-            src.data_ptr(), dst.data_ptr(), ovf.data_ptr(), nx, ny, nz, cap,
-            axis, float(cell_len[axis]), int(bool(sentinel)), stream,
-        )
-        _build.check(status, f"rebin_stage axis {axis}")
-        rebin_shift.launches += 1
-        src = dst
-    return src, ovf[0] != 0
+    out = launch_rebin_shift(big, **kw)
+    rebin_shift.launches += 2
+    return out
 
 
 rebin_shift.launches = 0
+
+
+def launch_rebin_shift(big, *, dims, cap, cell_len, sentinel):
+    """The launches of csrc/rebin_shift.cu behind rebin_shift, on checked
+    inputs: (out, overflow 0-d bool tensor)."""
+    nx, ny, nz = dims
+    lib = _lib()
+    fn = lib.rebin_shift_f32 if big.dtype == torch.float32 else lib.rebin_shift_f64
+    ovf = torch.zeros((1,), dtype=torch.int32, device=big.device)
+    out = torch.empty_like(big)
+    code = torch.empty((nz, ny, nx * cap), dtype=torch.uint8, device=big.device)
+    _build.check(fn(big.data_ptr(), out.data_ptr(), code.data_ptr(), ovf.data_ptr(),
+                    nx, ny, nz, cap, *(float(c) for c in cell_len),
+                    int(bool(sentinel)), _build.stream_of(lib, big, "rebin_shift")),
+                 "rebin_shift")
+    return out, ovf[0] != 0

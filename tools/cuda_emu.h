@@ -337,9 +337,12 @@ template <typename V>
 inline V atomicMin(V* p, V v) { const V old = *p; *p = std::min(old, v); return old; }
 template <typename V>
 inline V atomicMax(V* p, V v) { const V old = *p; *p = std::max(old, v); return old; }
+template <typename V>
+inline V atomicOr(V* p, V v) { const V old = *p; *p = old | v; return old; }
 
 using std::erfc;
 using std::exp;
+using std::floor;
 using std::max;
 using std::min;
 using std::sqrt;

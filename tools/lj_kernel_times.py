@@ -1,13 +1,14 @@
-"""The 1CLJ cell kernels K1, K3, K4, K7, K8 and K9 of several designs side
+"""The 1CLJ kernels K1, K3, K4, K7, K8, K9 and K10 of several designs side
 by side on one NVIDIA GPU.
 
     python3 tools/lj_kernel_times.py [--variant TAG=DIR[:FLAGS]] ...
-        [--kernels K1,K3,K4,K7,K8,K9] [--no-check TAG] ... [--reps 10]
+        [--kernels K1,K3,K4,K7,K8,K9,K10] [--no-check TAG] ... [--reps 10]
         [--walk] [--gram-order]
 
 Builds csrc/lj_cells.cu (K1), csrc/lj_cells_cw.cu (K3),
 csrc/lj_cells_row.cu (K4), csrc/lj_cells_lanej.cu (K7),
-csrc/lj_cells_n3l.cu (K8) and csrc/lj_cells_zb.cu (K9) of each variant
+csrc/lj_cells_n3l.cu (K8), csrc/lj_cells_zb.cu (K9) and
+csrc/lj_packed.cu (K10) of each variant
 (tools/kernel_variants.py: DIR a copy of ls1_mardyn_tpu_torch/csrc, e.g.
 a parent commit's from `git archive` or an edited copy, and optional
 nvcc flags; default: the checkout's own csrc, tag "tree") and prints
@@ -30,12 +31,14 @@ chip_smoke.py (N = 4,194,304, f32):
   K7               the same view (the switch lanej), without u6/virial;
   K8               the RMM planes read in place, without u6/virial;
   K9, K9 gram      the RMM planes read in place, without u6/virial;
+  K10              the RMM planes packed into pencils (chip_smoke.
+                   packed_views), without u6/virial;
 and held against the plain versions there.  With --walk the j slots a
 warp of the warp skeleton (csrc/lj_warp.cuh) stages, keeps and walks on
 each call's state are counted on the host (chip_smoke.lj_warp_walk), for
 the design steps a (no box cull, no half-warp split), b (cull, no split)
 and c (both, the shipped kernel; for K9 gram with the Gram margin; for
-K8 by the half shell).
+K8 by the half shell), and K10's group walk (chip_smoke.packed_warp_walk).
 With --gram-order K9's Gram form in f32 is held, on chip_smoke.py's
 check scenes and an 8^3 cut of the RMM state, against the plain version
 on the card and on the CPU and against the f64 plain version (the f32
@@ -59,7 +62,8 @@ import kernel_variants as kv  # noqa: E402
 KERNELS = {"K1": ("lj_cells", cs.phase_k1), "K3": ("lj_cells_cw", cs.phase_k3),
            "K4": ("lj_cells_row", cs.phase_k4),
            "K7": ("lj_cells_lanej", cs.phase_k7),
-           "K8": ("lj_cells_n3l", cs.phase_k8), "K9": ("lj_cells_zb", cs.phase_k9)}
+           "K8": ("lj_cells_n3l", cs.phase_k8), "K9": ("lj_cells_zb", cs.phase_k9),
+           "K10": ("lj_packed", cs.phase_k10)}
 
 
 def full_width_inputs(kernels):
@@ -108,6 +112,15 @@ def full_width_inputs(kernels):
                           functools.partial(V.lj_cell_forces_zb_reference,
                                             gram=gram),
                           (r4,), fast, dict(gram=gram))
+    if "K10" in kernels:
+        from ls1_mardyn_tpu_torch.ops import cuda_packed as PK
+
+        packed, _, _, tab, meta, _, Wp = cs.packed_views(rsim.state.planes, dims, cap)
+        nx, ny, nz = dims
+        calls["K10"] = (PK.lj_forces_packed, PK.lj_forces_packed_reference,
+                        (packed[:, :, :4].contiguous(), tab, meta),
+                        dict(nx=nx, ny=ny, nz=nz, Wp=Wp, box=rsim.spec.box,
+                             compute_macro=False, **lj), dict(packed=True))
     if "K3" in kernels or "K4" in kernels:
         gen = cs.make_sim(2, "cuda", force_mode="pallas")
         gen.engine.prepare_start()
@@ -195,6 +208,10 @@ def main():
     calls = full_width_inputs(kernels)
     if args.walk:
         for key, (_, _, a, kw, wkw) in calls.items():
+            if wkw.get("packed"):
+                cs.say("walk", state=key, walk=json.dumps(cs.packed_warp_walk(
+                    a[0], a[1], a[2], kw["nx"], kw["box"], kw["rc2"])))
+                continue
             cl = kw.get("cell_len", (0.0,) * 3)
             for step, cull, split in (("a", False, False), ("b", True, False),
                                       ("c", True, True)):
@@ -216,7 +233,8 @@ def main():
             rel = max(cs.rel_errors(fn(*a, **dict(kw, compute_macro=True)),
                                     ref[key]))
             cs.check(rel <= 1e-5, f"{tag} {key}: rel err {rel}")
-            cs.say("times", variant=tag, kernel=key, grid=kw["dims"],
+            cs.say("times", variant=tag, kernel=key,
+                   grid=kw.get("dims", (kw.get("nx"), kw.get("ny"), kw.get("nz"))),
                    macro=kw.get("compute_macro", True),
                    ms=json.dumps([round(t, 3) for t in times[tag][key]]),
                    rel_to_plain=f"{rel:.2e}", gpu=repr(smi))
