@@ -73,6 +73,13 @@ non-zero and never prints the result line):
            version's
   small    the RMM driver on the card vs on the CPU (plain versions),
            N=1024, f64, 20 steps: T, p, Upot rtol 1e-9, r and v 1e-9
+  plugins-small  the driver with plugins on the card vs on the CPU, f64,
+           N=1024, 20 steps, files written every 5 steps: the observer
+           set of WRITER_SET on the RMM engine (K1), and MaxCheck +
+           FlopRateWriter + ResultWriter on the general engine (K3); the
+           engine of each scene asserted, every output file with the
+           same lines and layout and its numbers within rtol 1e-9, the
+           binary checkpoint read back bit-identical to the state
   general-small  the general engine on the card vs on the CPU, f64, 20
            steps: force_mode="pallas" (1CLJ, N=1000) and "cells" (a
            2CLJ+quadrupole fluid): T, p, Upot rtol 1e-9; r, v, q, L 1e-9
@@ -82,6 +89,17 @@ non-zero and never prints the result line):
   main     the RMM path at N=4,194,304 for rebin_every+2 steps and a
            timed window of rebin_every steps; one whole shift rebin
            (fold, K2, split) timed
+  main/plugins  the main path with ResultWriter, EnergyLogWriter,
+           MaxWriter, TimerWriter and SysMonOutput at writefrequency 10
+           for 2 rebin periods (K1 and K2 launched, RMM engine), then
+           windows of that length on the bare main path and on this one
+           in turns (ms/step of each, the writers' cost); one binary
+           checkpoint of all 4,194,304 molecules (seconds, bytes, GB/s),
+           read back through the binary reader and equal to the state
+  nve      the seed (one tile, N=524,288) on the RMM path without
+           thermostat, LJ shifted at rc, f32, 10,000 steps at each dt of
+           NVE_DTS; E sampled every 100 steps; drift max|E-E0|/max(|E0|,1)
+           below 1e-4 at NVE_GATE_DT = 0.0005
   main/<switch>  3 steps each through RMMSimulation's switches, set on
            md.engine.sim: row (K4), cw (K3), lanej (K7), n3l (K8), zb and
            zb_gram (K9); the selected kernel ran every step, T within 10%
@@ -1125,17 +1143,22 @@ def scene_config(box, rc=RC):
                      cutoff=rc, lj_cutoff=rc, ensemble_type="NVT")
 
 
-def make_sim(tiles, device, dtype=torch.float32, force_mode="auto"):
+def make_sim(tiles, device, dtype=torch.float32, force_mode="auto",
+             plugins=(), components=None, **config):
     """MDSimulation on the seed tiled tiles^3 times (bench.py:250-259
-    settings)."""
+    settings), with the config's output plugins `plugins` and its other
+    fields overridden by `config`."""
     from ls1_mardyn_tpu_torch.driver import MDSimulation
     from ls1_mardyn_tpu_torch.io.generators import cubic_grid
 
     r, v, L = seed_state(tiles)
-    data = cubic_grid(len(r), [L, L, L], TEMP, seed=7)
+    data = cubic_grid(len(r), [L, L, L], TEMP, seed=7, components=components)
     data.r, data.v = r, v
-    return MDSimulation(scene_config(data.box), dtype=dtype,
-                        phase_space_data=data, device=device,
+    cfg = scene_config(data.box)
+    cfg.output_plugins = list(plugins)
+    for k, val in config.items():
+        setattr(cfg, k, val)
+    return MDSimulation(cfg, dtype=dtype, phase_space_data=data, device=device,
                         force_mode=force_mode)
 
 
@@ -1240,6 +1263,272 @@ def check_globals(phase, gv, n):
     check(abs(T / TEMP - 1) <= 0.1, f"{phase}: T={T} not within 10% of {TEMP}")
     check(int(float(gv.n)) == n, f"{phase}: lost molecules")
     return T, p, U
+
+
+# where the plugin phases write their files (build/ is git-ignored)
+PLUGIN_OUT = os.path.join(HERE, "build", "chip_smoke")
+# the observer set of plugins-small on the RMM engine, and the plugins
+# that keep the same scene on the general engine (K3)
+WRITER_SET = ("ResultWriter", "EnergyLogWriter", "MaxWriter", "XyzWriter",
+              "CheckpointWriter", "CheckpointWriter:binary", "TimerWriter",
+              "SysMonOutput")
+LIMITER_SET = ("ResultWriter", "FlopRateWriter", "MaxCheck")
+# the writers of main/plugins, at writefrequency 10
+MAIN_WRITERS = ("ResultWriter", "EnergyLogWriter", "MaxWriter", "TimerWriter",
+                "SysMonOutput")
+# nve: the time steps run, and the one held to the drift target (the
+# README's claim: < 1e-4 over 10k steps at dt <= 0.0005)
+NVE_DTS = (0.001, 0.0005, 0.00025)
+NVE_GATE_DT = 0.0005
+NVE_STEPS, NVE_EVERY, NVE_DRIFT = 10_000, 100, 1e-4
+
+
+def fresh_dir(name):
+    import shutil
+
+    d = os.path.join(PLUGIN_OUT, name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def plugin_specs(d, names, freq):
+    """PluginSpecs writing into d every `freq` steps ("X:binary" is X
+    with <type>binary</type>, to its own prefix)."""
+    from ls1_mardyn_tpu_torch.io.xml_config import PluginSpec
+
+    out = []
+    for name in names:
+        name, _, kind = name.partition(":")
+        params = {"writefrequency": str(freq),
+                  "outputprefix": os.path.join(d, kind or "run")}
+        if kind:
+            params["type"] = kind
+        if name == "MaxCheck":
+            params = {"vmax": "2.5"}
+        out.append(PluginSpec(name, params))
+    return out
+
+
+def _num(tok):
+    try:
+        return float(tok)
+    except ValueError:
+        return None
+
+
+def text_rel_err(a, b, columns=None):
+    """Largest relative difference of the numbers of two writer files;
+    raises unless their lines, tokens and spacing match (timestamps and
+    wall-clock columns aside)."""
+    import re
+
+    la, lb = open(a).read().splitlines(), open(b).read().splitlines()
+    check(len(la) == len(lb), f"{a}: {len(la)} lines against {len(lb)}")
+    worst = 0.0
+    for x, y in zip(la, lb):
+        if " started at " in x or " finished at " in x:
+            check(x.split(" at ")[0] == y.split(" at ")[0], f"{a}: {x!r}")
+            continue
+        check(re.sub(r"\S+", "x", x) == re.sub(r"\S+", "x", y),
+              f"{a}: layout {x!r} against {y!r}")
+        for k, (p, q) in enumerate(zip(x.split(), y.split())):
+            if columns is not None and k >= columns:
+                break
+            fp, fq = _num(p), _num(q)
+            if fp is None or fq is None:
+                check(p == q, f"{a}: {p!r} against {q!r}")
+            elif fp != fq:
+                worst = max(worst, abs(fp - fq) / max(abs(fp), abs(fq)))
+    return worst
+
+
+def by_mid(data):
+    o = np.argsort(data.mid)
+    return {k: np.asarray(getattr(data, k))[o]
+            for k in ("mid", "cid", "r", "v", "q", "L")}
+
+
+def state_rel_err(a, b):
+    """Largest elementwise relative difference of two PhaseSpaceData
+    (molecules matched by id); ids and components must be equal."""
+    a, b = by_mid(a), by_mid(b)
+    check(np.array_equal(a["mid"], b["mid"]) and np.array_equal(a["cid"], b["cid"]),
+          "molecule ids or components differ")
+    worst = 0.0
+    for k in ("r", "v", "q", "L"):
+        d = np.abs(a[k] - b[k])
+        m = np.maximum(np.abs(a[k]), np.abs(b[k]))
+        worst = max(worst, float(np.max(np.where(d > 0, d / np.where(m > 0, m, 1), 0))))
+    return worst
+
+
+def compare_outputs(phase, da, db):
+    """Every file of the card's run (da) against the CPU run's (db)."""
+    from ls1_mardyn_tpu_torch.io.binary_io import read_binary_checkpoint
+
+    errs = {}
+    names = sorted(os.listdir(da))
+    check(names == sorted(os.listdir(db)), f"{phase}: file sets differ")
+    for name in names:
+        a, b = os.path.join(da, name), os.path.join(db, name)
+        if name.endswith(".header.xml"):
+            check(open(a).read() == open(b).read(), f"{phase}: {name} differs")
+            continue
+        if os.path.exists(a + ".header.xml"):
+            errs[name] = state_rel_err(read_binary_checkpoint(a, a + ".header.xml"),
+                                       read_binary_checkpoint(b, b + ".header.xml"))
+        elif name.endswith(".timers"):
+            shape = [[ln.split()[0], ln.split()[-1]] for ln in open(a)]
+            check(shape == [[ln.split()[0], ln.split()[-1]] for ln in open(b)],
+                  f"{phase}: {name} timers differ")
+        else:
+            errs[name] = text_rel_err(a, b, 2 if name.endswith(".floprate") else None)
+    return errs
+
+
+def phase_plugins_small(device):
+    """The driver with its observer plugins on the card against the same
+    driver on the CPU, f64, N=1024, 20 steps: the writer set on the RMM
+    engine (K1), and MaxCheck + FlopRateWriter, which keep the scene on
+    the general engine (K3).  Every output file agrees within rtol 1e-9;
+    the binary checkpoint read back is bit-identical to the exported
+    state."""
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+    from ls1_mardyn_tpu_torch.io.binary_io import read_binary_checkpoint
+    from ls1_mardyn_tpu_torch.ops import cuda_lj
+    from ls1_mardyn_tpu_torch.ops.lj_path import CudaLJPath
+
+    for tag, names, engine, counter in (
+            ("rmm", WRITER_SET, "RMMEngine", cuda_lj.lj_cell_forces),
+            ("general", LIMITER_SET, "SingleChipSimulation",
+             cuda_lj.lj_cell_forces_cw)):
+        dirs = {}
+        for dev in (device, "cpu"):
+            d = dirs[dev] = fresh_dir(f"small_{tag}_{dev}")
+            data, L = lattice_scene(1024, 0.6, "1clj")
+            cfg = scene_config(data.box)
+            cfg.output_plugins = plugin_specs(d, names, 5)
+            sim = MDSimulation(cfg, dtype=torch.float64, phase_space_data=data,
+                               device=dev)
+            check(type(sim.engine).__name__ == engine,
+                  f"plugins-small/{tag}: engine {type(sim.engine).__name__}")
+            if tag == "general":
+                path = sim.engine._force_fn
+                check(isinstance(path, CudaLJPath) and path.cw,
+                      "plugins-small/general: not the K3 path")
+            counter.launches = 0
+            gv = sim.run(steps=20, print_every=0)
+            if dev != "cpu":
+                launches = counter.launches
+                check(launches >= 20, f"plugins-small/{tag}: {launches} launches")
+                if tag == "rmm":
+                    ck = os.path.join(d, "binary-20.restart.dat")
+                    back = read_binary_checkpoint(ck, ck + ".header.xml")
+                    now = sim._export_phasespace()
+                    exact = state_rel_err(back, now) == 0.0 and \
+                        back.current_time == now.current_time
+                    check(exact, "plugins-small: binary restart not bit-identical")
+                cv = sim.cv()
+        errs = compare_outputs(f"plugins-small/{tag}", dirs[device], dirs["cpu"])
+        say("plugins-small", scene=tag, engine=engine, n=int(float(gv.n)),
+            launches=launches, files=len(os.listdir(dirs[device])), cv=f"{cv:.9f}",
+            rel=json.dumps({k: f"{e:.1e}" for k, e in errs.items()}))
+        check(max(errs.values()) <= 1e-9,
+              f"plugins-small/{tag}: card and CPU files differ ({errs})")
+
+
+def phase_main_plugins(sim_bare, device, smi):
+    """The full-width RMM path with the writers of MAIN_WRITERS at
+    writefrequency 10 for 2 rebin periods (K1 and K2 counted from 0),
+    then windows of that length on the bare main path and on this one in
+    turns; then one binary checkpoint of the whole state, read back."""
+    from ls1_mardyn_tpu_torch.io.binary_io import read_binary_checkpoint
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces
+    from ls1_mardyn_tpu_torch.ops.cuda_rebin import rebin_shift
+    from ls1_mardyn_tpu_torch.rmm_engine import RMMEngine
+
+    d = fresh_dir("main_plugins")
+    lj_cell_forces.launches = 0
+    rebin_shift.launches = 0
+    sim = make_sim(2, device, plugins=plugin_specs(d, MAIN_WRITERS, 10))
+    check(isinstance(sim.engine, RMMEngine), "main/plugins: not the RMM engine")
+    steps = 2 * sim.engine.sim.rebin_every
+    ms0, gv = timed_window(sim, steps)
+    launches = {"K1": lj_cell_forces.launches, "K2": rebin_shift.launches}
+    check(launches["K1"] >= steps and launches["K2"] >= 1,
+          f"main/plugins did not run both kernels ({launches})")
+    T, p, U = check_globals("main/plugins", gv, N_MAIN)
+    rows = [ln.split() for ln in open(os.path.join(d, "run.res"))]
+    rows = [r for r in rows if r[0].isdigit()]
+    check(len(rows) == steps // 10
+          and np.isfinite([[float(x) for x in r] for r in rows]).all(),
+          "main/plugins: result file")
+    bare, plug = [], []
+    for _ in range(3):
+        bare.append(timed_window(sim_bare, steps)[0])
+        plug.append(timed_window(sim, steps)[0])
+    ms_b, ms_p = float(np.mean(bare)), float(np.mean(plug))
+    say("main/plugins", writers=",".join(MAIN_WRITERS), writefrequency=10,
+        steps=steps, first_window_ms_per_step=f"{ms0:.3f}",
+        ms_per_step=f"{ms_p:.3f}", main_ms_per_step=f"{ms_b:.3f}",
+        windows=json.dumps({"main": [round(x, 3) for x in bare],
+                            "plugins": [round(x, 3) for x in plug]}),
+        writer_cost=f"{ms_p / ms_b - 1:+.3%}", T=f"{T:.6f}",
+        launches=json.dumps(launches), gpu=repr(smi))
+    ck = os.path.join(d, "full.restart.dat")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.write_checkpoint(ck, binary=True)
+    secs = time.perf_counter() - t0
+    nbytes = os.path.getsize(ck) + os.path.getsize(ck + ".header.xml")
+    back = read_binary_checkpoint(ck, ck + ".header.xml")
+    exact = state_rel_err(back, sim._export_phasespace()) == 0.0
+    say("main/plugins", checkpoint="binary", n=len(back.mid), seconds=f"{secs:.3f}",
+        bytes=nbytes, GB_per_s=f"{nbytes / secs / 1e9:.3f}", read_back_exact=exact)
+    check(len(back.mid) == N_MAIN and exact,
+          "main/plugins: binary checkpoint read back differs")
+    os.remove(ck)
+    return launches
+
+
+def nve_drift(device, dt):
+    """max|E - E0| / max(|E0|, 1) of the seed (one tile) on the RMM path
+    without thermostat, LJ shifted at rc, f32, over NVE_STEPS steps; E
+    sampled at step 1 and every NVE_EVERY steps (tests/
+    test_simulation_e2e.py's definition)."""
+    from ls1_mardyn_tpu_torch.models.components import Component
+    from ls1_mardyn_tpu_torch.rmm_engine import RMMEngine
+
+    c = Component(cid=0)
+    c.add_ljcenter(0.0, 0.0, 0.0, 1.0, 1.0, 1.0, RC, True)
+    sim = make_sim(1, device, components=[c], ensemble_type="NVE", timestep=dt)
+    check(isinstance(sim.engine, RMMEngine) and not sim.engine.sim.thermostat,
+          "nve: not the RMM engine without thermostat")
+    e = []
+    t0 = time.perf_counter()
+    for steps in [1, NVE_EVERY - 1] + [NVE_EVERY] * (NVE_STEPS // NVE_EVERY - 1):
+        gv = sim.run(steps=steps, print_every=0)
+        e.append(float(gv.upot) + 0.5 * (float(gv.summv2) + float(gv.sum_iw2)))
+    secs = time.perf_counter() - t0
+    check(sim.step == NVE_STEPS and np.all(np.isfinite(e)), "nve: run")
+    e = np.asarray(e)
+    drift = float(np.abs(e - e[0]).max() / max(abs(e[0]), 1.0))
+    return drift, e, secs, sim.engine.sim.rebin_every, int(float(gv.n))
+
+
+def phase_nve(device, smi):
+    drifts = {}
+    for dt in NVE_DTS:
+        drift, e, secs, rebin_every, n = nve_drift(device, dt)
+        drifts[dt] = drift
+        say("nve", dt=dt, n=n, steps=NVE_STEPS, drift=f"{drift:.3e}",
+            E0=f"{e[0]:.6f}", E_end=f"{e[-1]:.6f}", rebin_every=rebin_every,
+            ms_per_step=f"{secs / NVE_STEPS * 1e3:.3f}", gpu=repr(smi))
+    check(drifts[NVE_GATE_DT] < NVE_DRIFT,
+          f"nve: drift {drifts[NVE_GATE_DT]:.3e} at dt {NVE_GATE_DT} "
+          f"not below {NVE_DRIFT}")
+    return drifts
 
 
 def phase_main(device, smi):
@@ -2262,10 +2551,15 @@ def main():
     phase_small(device)
     phase_general_small(device)
     phase_multisite_small(device)
+    phase_plugins_small(device)
     sim_rmm, launches = phase_main(device, smi)
     switched = phase_switches(sim_rmm, smi)
     launches.update({k: switched[k] for k in ("K7", "K8", "K9")})
     launches.update(phase_packed(sim_rmm, smi))
+    # the main path with its writers: K1 and K2 launched by it too
+    for k, n in phase_main_plugins(sim_rmm, device, smi).items():
+        launches[k] += n
+    phase_nve(device, smi)
     sim_gen, launches_gen = phase_general(device, smi)
     launches.update(launches_gen)
     phase_multisite_cells(device, smi)

@@ -17,22 +17,34 @@ ops/cuda_ms_packed.CudaMultiSitePackedPath) and K6 (dense cap-padded
 rows, ops/ms_path.CudaMultiSitePath) for multi-component, multi-site and
 polar scenes and for 1CLJ scenes on non-uniform z rows, the N^2 oracle
 sweep for small scenes with huge cutoffs, or the plain general
-multi-site cell traversal ("cells").  The features of later slices
-(plugins, muVT, long-range solvers) raise NotImplementedError naming the
-ROADMAP slice that brings them.
+multi-site cell traversal ("cells").
+
+Observer plugins (plugins/writers.py, plugins/diagnostics.py) are built
+from the config before the engine and initialised after it; a plugin
+that is not RMM-safe keeps a 1CLJ scene on the general engine.  The
+features of later slices (the other plugins, muVT, long-range solvers)
+raise NotImplementedError naming the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+import os
+import time as _time
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ls1_mardyn_tpu_torch.io.ascii_reader import PhaseSpaceData, read_inp, write_inp
-from ls1_mardyn_tpu_torch.io.generators import cubic_grid
+from ls1_mardyn_tpu_torch.io.generators import (
+    cubic_grid,
+    mkesfera,
+    mktcts,
+    multi_object,
+    per_cell,
+)
 from ls1_mardyn_tpu_torch.io.xml_config import XMLConfig, read_xml_config
 from ls1_mardyn_tpu_torch.models.components import ComponentTable
 from ls1_mardyn_tpu_torch.models.interaction import PairParams
@@ -47,6 +59,7 @@ from ls1_mardyn_tpu_torch.ops.lrc import HomogeneousLRC, NoLRC
 from ls1_mardyn_tpu_torch.ops.ms_path import CudaMultiSitePath, pick_ms_grid
 from ls1_mardyn_tpu_torch.ops.rmm import CellCapacityError
 from ls1_mardyn_tpu_torch.ops.thermostat import TemperatureControlRegion
+from ls1_mardyn_tpu_torch.plugins import PluginFactory
 from ls1_mardyn_tpu_torch.rmm_engine import RMMEngine, pick_rmm_grid
 from ls1_mardyn_tpu_torch.simulation import SimConfig, SingleChipSimulation
 from ls1_mardyn_tpu_torch.state import MoleculeState, resolve_device
@@ -64,11 +77,78 @@ def _cap_for(occ: int) -> int:
     return max(32, int(2 ** math.ceil(math.log2(max(1.5 * occ, 8)))))
 
 
+# the plugins of the JAX package's registry that this package does not
+# register yet (ROADMAP slice 6b): a config naming one is refused
+LATER_PLUGINS = frozenset({
+    "COMaligner", "CavityWriter", "CommunicationPartnerWriter",
+    "DecompWriter", "DirectedPM", "DistControl", "DomainProfiles",
+    "DriftCtrl", "Dropaccelerator", "Dropaligner", "ExamplePlugin",
+    "ExtractPhase", "FixRegion", "GammaWriter", "HaloParticleWriter",
+    "InMemoryCheckpointing", "KDTreePrinter", "LoadbalanceWriter",
+    "MPICheckpointWriter", "MettDeamon", "MettDeamonFeedrateDirector",
+    "Mirror", "MirrorSystem", "MmpldWriter", "MmspdBinWriter", "MmspdWriter",
+    "ODF", "Permittivity", "PosNegComp", "PovWriter", "RDF",
+    "RegionSampling", "SpatialProfile", "SteereoControl", "VISWriter",
+    "VTKGridWriter", "VTKMoleculeWriter", "WallPotential", "WidomInsertion",
+})
+
+
 def _out_of_slice(what: str, slice_: str):
     return NotImplementedError(
         f"{what} is not ported to ls1_mardyn_tpu_torch yet "
         f"(ROADMAP {slice_}); run it with ls1_mardyn_tpu"
     )
+
+
+class _ProfileWindow:
+    """torch.profiler trace over a step window (the TaskTimingProfiler /
+    PAPI role, src/Simulation.cpp:1249-1254 and src/utils/Timer.h:14-23):
+    host and device timelines of the steps after `window[0]` up to
+    `window[1]`, written as a Chrome trace ``trace.json`` into the
+    directory (view with ui.perfetto.dev).  The device is synchronised
+    before the window starts and before it stops, so the trace holds
+    exactly its steps' work.  No-op when the directory is None."""
+
+    def __init__(self, trace_dir, window, total_steps, device):
+        self.dir = trace_dir
+        self.device = device
+        a, b = window
+        # clamp into the run (short runs still produce a trace)
+        if total_steps < b:
+            b = total_steps
+            a = max(1, b - 5)
+        self.start_at, self.stop_at = a, b
+        self.prof = None
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def tick(self, k):
+        if not self.dir:
+            return
+        if k == self.start_at and self.prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._sync()  # drain queued work so the trace starts clean
+            self.prof = profile(activities=acts)
+            self.prof.start()
+        elif k >= self.stop_at and self.prof is not None:
+            self.finish()
+
+    def finish(self):
+        if self.prof is None:
+            return
+        self._sync()  # capture through the last traced step
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, "trace.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        global_log.info("wrote torch.profiler trace to %s", path)
 
 
 class MDSimulation:
@@ -90,6 +170,9 @@ class MDSimulation:
         phase_space_data: Optional[PhaseSpaceData] = None,
         allow_axis_swap: bool = True,
         device="cuda",
+        # the adaptive re-spec hands its plugins to the rebuilt driver:
+        # they are neither built again nor initialised again
+        _plugins: Optional[list] = None,
     ):
         self.device = resolve_device(device)
         if force_mode not in _FORCE_MODES:
@@ -114,11 +197,13 @@ class MDSimulation:
             raise _out_of_slice("the planar long-range correction", "slice 4")
         if config.ensemble_type == "muVT":
             raise _out_of_slice("the muVT ensemble", "slice 5")
-        specs = list(config.output_plugins) + list(config.plugins)
-        if specs:
-            raise _out_of_slice(
-                "plugins (%s)" % ", ".join(s.name for s in specs), "slice 6"
-            )
+        # plugins are built BEFORE the engine (their write cadence and
+        # their RMM safety pick it); init(sim) runs after the engine
+        # exists, at the end of __init__ (JAX driver.py:654-659, 815-816)
+        if _plugins is None:
+            self._plugins = self._build_plugins(config)
+        else:
+            self._plugins = _plugins
         if config.cells_in_cutoff > 1:
             # every traversal reaches +-1 cell only, so cells finer than
             # the cutoff drop pairs (ROADMAP Queue 3: the JAX package
@@ -202,6 +287,19 @@ class MDSimulation:
                 "(force_mode='cells' runs this one on the plain general "
                 "traversal)"
             )
+        rmm_safe = all(
+            type(p).__name__ in self._RMM_SAFE_PLUGINS
+            or getattr(p, "name", "") in self._RMM_SAFE_PLUGINS
+            for p in self._plugins
+        )
+        if force_mode == "rmm" and not rmm_safe:
+            raise ValueError(
+                "force_mode='rmm': plugin(s) %s write the state or need "
+                "per-molecule data the RMM engine does not keep (auto runs "
+                "this scene on the general engine)" % ", ".join(
+                    p.name for p in self._plugins
+                    if p.name not in self._RMM_SAFE_PLUGINS)
+            )
         force_fn = self._pick_force_fn(data, config, cell_cap, n, is_1clj)
 
         # -- RMM dense engine (the VCP1CLJRMM + LeapfrogRMM pipeline,
@@ -224,6 +322,7 @@ class MDSimulation:
             and not sim_cfg.undirected_thermostats
             and not sim_cfg.temp_control_regions
             and n > 0
+            and rmm_safe
         )
         if rmm_ok:
             rc = config.lj_cutoff
@@ -257,10 +356,60 @@ class MDSimulation:
                 "engine: general single-device engine on %s, grid %s cap %d",
                 self.device, self.engine.spec.dims, self.engine.spec.cap,
             )
-        self._plugins = []
         self.last_globals = None
         self.time = float(data.current_time)
         self.step = 0
+        # heat-capacity sampling (Domain::record_cv, Domain.cpp:779-798),
+        # gated on <equilibration><steps> (Simulation.cpp:196 +
+        # CanonicalEnsemble.cpp:211-215).  Per-step Upot values stay on
+        # the device and are folded, at the watchdog cadence, into f64
+        # sums [sum U, sum U^2] that stay there too.
+        self._cv_sums = None
+        self._cv_n = 0
+        self._cv_win = []
+        if _plugins is None:
+            for p in self._plugins:
+                p.init(self)
+
+    # plugins known to be frame-agnostic (they read state via
+    # molecules()/write_checkpoint, which un-swap); anything else blocks
+    # the axis swap (JAX driver.py:825-833)
+    _SWAP_SAFE_PLUGINS = {
+        "ResultWriter", "CheckpointWriter", "XyzWriter",
+        "EnergyLogWriter", "MaxWriter", "SysMonOutput", "TimerWriter",
+        "FlopRateWriter", "TestPlugin", "ExamplePlugin",
+        "SteereoControl", "MaxCheck",
+    }
+
+    # plugins compatible with the RMM dense engine: observers that read
+    # state via molecules()/engine.mol at their own write cadence (the
+    # property gathers the dense planes on demand) and mutate it at most
+    # rarely (the mol setter re-bins).  Per-step mutators (MaxCheck) and
+    # the pair counter of FlopRateWriter keep the general engine (JAX
+    # driver.py:835-847).
+    _RMM_SAFE_PLUGINS = {
+        "ResultWriter", "CheckpointWriter", "XyzWriter",
+        "EnergyLogWriter", "MaxWriter", "SysMonOutput", "TimerWriter",
+        "TestPlugin", "ExamplePlugin", "SteereoControl",
+        "MmpldWriter", "MmspdWriter", "MmspdBinWriter", "PovWriter",
+        "VISWriter", "VTKMoleculeWriter", "InMemoryCheckpointing",
+    }
+
+    @staticmethod
+    def _build_plugins(config) -> list:
+        """The config's plugins, in config order.  A plugin of the JAX
+        package's registry that this package does not register yet
+        raises; a name neither package knows is logged and ignored, as
+        in the JAX driver."""
+        plugins = []
+        for spec in list(config.output_plugins) + list(config.plugins):
+            if spec.name in LATER_PLUGINS:
+                raise _out_of_slice(f"plugin {spec.name}", "slice 6b")
+            try:
+                plugins.append(PluginFactory.create(spec.name, spec.params))
+            except KeyError:
+                global_log.warning("ignoring unknown plugin %r", spec.name)
+        return plugins
 
     # -- construction helpers ----------------------------------------------
     def _measure_cell_cap(self, data, config, n: int) -> int:
@@ -508,6 +657,9 @@ class MDSimulation:
         # per-direction; an axis permutation would silently change both
         if config.temp_control:
             return None
+        for spec in list(config.output_plugins) + list(config.plugins):
+            if spec.name not in cls._SWAP_SAFE_PLUGINS:
+                return None
         for c in data.components:
             if c.dipoles or c.quadrupoles or c.is_stockmayer:
                 return None
@@ -534,9 +686,23 @@ class MDSimulation:
 
     def _load_phasespace(self, cfg: XMLConfig) -> PhaseSpaceData:
         if cfg.phasespace_file:
+            if cfg.phasespace_file_type.lower() == "binary":
+                from ls1_mardyn_tpu_torch.io.binary_io import read_binary_checkpoint
+
+                data = read_binary_checkpoint(
+                    cfg.phasespace_file,
+                    cfg.phasespace_header,
+                    components=cfg.components or None,
+                    mixing_xi=cfg.mixing_xi,
+                    mixing_eta=cfg.mixing_eta,
+                    eps_rf=cfg.eps_rf,
+                )
+                if cfg.box is not None and (cfg.box > 0).all():
+                    data.box = cfg.box
+                return data
             if cfg.phasespace_file_type.upper() != "ASCII":
-                raise _out_of_slice(
-                    f"phasespacepoint type {cfg.phasespace_file_type}", "slice 6"
+                raise NotImplementedError(
+                    f"phasespacepoint type {cfg.phasespace_file_type}"
                 )
             data = read_inp(cfg.phasespace_file)
             if cfg.components:
@@ -555,7 +721,41 @@ class MDSimulation:
                 rho = float(p.get("density", 0.5))
                 n = int(float(p.get("numMolecules", 0)) or rho * np.prod(cfg.box))
                 return cubic_grid(n, cfg.box, cfg.temperature, components=comps)
-            raise _out_of_slice(f"generator {name}", "slice 6")
+            if name in ("MkesferaGenerator", "mkesfera"):
+                drop = p.get("droplet")
+                radius = (drop.get("radius", p.get("radius", 1.0))
+                          if isinstance(drop, dict) else p.get("radius", 1.0))
+                return mkesfera(
+                    float(radius),
+                    float(p.get("density-liquid", p.get("rho_liq", 0.7))),
+                    float(p.get("density-vapor", p.get("rho_vap", 0.01))),
+                    cfg.box, cfg.temperature, components=comps,
+                )
+            if name in ("MkTcTSGenerator", "mkTcTS"):
+                return mktcts(
+                    float(p.get("density-liquid", p.get("rho_liq", 0.7))),
+                    float(p.get("density-vapor", p.get("rho_vap", 0.01))),
+                    cfg.box, cfg.temperature,
+                    liq_fraction=float(p.get("liq_fraction", 0.5)),
+                    components=comps,
+                )
+            if name == "PerCellGenerator":
+                return per_cell(
+                    int(float(p.get("numMoleculesPerCell", 0))),
+                    cfg.box,
+                    max(cfg.cutoff, cfg.lj_cutoff),
+                    float(p.get("initTemperature", cfg.temperature)),
+                    components=comps,
+                    generate_at_least_two=str(
+                        p.get("generateAtLeastTwoParticles", "true")
+                    ).lower() in ("1", "true", "yes"),
+                )
+            if name in ("MultiObjectGenerator", "ObjectGenerator"):
+                return multi_object(
+                    p.get("objectgenerator", []), cfg.box, cfg.temperature,
+                    comps, base_dir=cfg.config_dir,
+                )
+            raise NotImplementedError(f"generator {name}")
         raise ValueError("config has neither phasespacepoint file nor generator")
 
     # -- accessors (always the ORIGINAL frame) -------------------------------
@@ -575,6 +775,20 @@ class MDSimulation:
         if self._axis_swap is not None:
             F = F[:, self._swap_perm()]
         return F
+
+    def velocities_and_forces(self):
+        """((vx, vy, vz), (Fx, Fy, Fz), valid): device tensors of one
+        shape, for observers that reduce them (MaxWriter).  The RMM
+        engine's come straight from its planes (no host round trip), the
+        general engine's from its flat state; the forces are None before
+        the first force evaluation.  Entries are in the engine's order and
+        frame, which norms and maxima do not see."""
+        eng = self.engine
+        if isinstance(eng, RMMEngine) and eng.sim.state is not None:
+            return eng.slot_velocities_forces()
+        mol, forces = eng.mol, eng.forces
+        F = forces.F.unbind(1) if forces is not None else None
+        return mol.v.unbind(1), F, mol.valid
 
     def _export_phasespace(self) -> PhaseSpaceData:
         """Current device state -> PhaseSpaceData in the ORIGINAL frame
@@ -627,8 +841,11 @@ class MDSimulation:
             "and resume", self.step, new_cap,
         )
         data = self._export_phasespace()
+        # the rebuilt driver adopts this one's plugins: no second set is
+        # built, no file is truncated, and its engine gate still sees them
         kw = dict(dtype=self.dtype, force_mode=self._force_mode,
-                  phase_space_data=data, device=self.device)
+                  phase_space_data=data, device=self.device,
+                  _plugins=self._plugins)
         # re-MEASURE from the current state first (cell_cap=0): this
         # re-runs the axis-swap/adaptive-row detection too, which an
         # explicit cap would skip; only force the doubled cap if
@@ -655,11 +872,55 @@ class MDSimulation:
             )
         return cap
 
-    def write_checkpoint(self, path: str):
-        """ASCII .inp checkpoint, compatible with the reference's format."""
+    def _fold_cv(self):
+        """The pending Upot samples into the device sums (no read)."""
+        if self._cv_win:
+            u = torch.stack(self._cv_win).to(torch.float64)
+            self._cv_win.clear()
+            s = torch.stack([u.sum(), (u * u).sum()])
+            self._cv_sums = s if self._cv_sums is None else self._cv_sums + s
+            self._cv_n += len(u)
+
+    def cv_terms(self):
+        """([sum U, sum U^2, N, T, rot_dof] as 0-d device tensors, number
+        of samples): what cv_value needs, with no read; empty before a
+        sample or a step."""
+        self._fold_cv()
+        gv = self.last_globals
+        if not self._cv_n or gv is None:
+            return [], 0
+        return [self._cv_sums[0], self._cv_sums[1], gv.n, gv.temperature,
+                gv.rot_dof], self._cv_n
+
+    @staticmethod
+    def cv_value(samples, su=0.0, suu=0.0, n=0.0, t=0.0, rot_dof=0.0) -> float:
+        """Isochoric heat capacity from post-equilibration U statistics
+        (Domain::cv, Domain.cpp:789-798)."""
+        if not samples or n <= 0 or t <= 0:
+            return 0.0
+        ideal = 1.5 + 0.5 * rot_dof / n
+        conf = (suu - su**2 / samples) / (samples * n * t * t)
+        return ideal + conf
+
+    def cv(self) -> float:
+        terms, samples = self.cv_terms()
+        if not samples:
+            return 0.0
+        return self.cv_value(
+            samples, *torch.stack([x.double() for x in terms]).tolist())
+
+    def write_checkpoint(self, path: str, binary: bool = False):
+        """Checkpoint compatible with the reference's formats: ASCII
+        .inp, or the binary record format + XML header when binary=True
+        (writes <path> and <path>.header.xml)."""
         data = self._export_phasespace()
         with self.timers["SIMULATION_IO"]:
-            write_inp(path, data)
+            if binary:
+                from ls1_mardyn_tpu_torch.io.binary_io import write_binary_checkpoint
+
+                write_binary_checkpoint(path, path + ".header.xml", data)
+            else:
+                write_inp(path, data)
         global_log.info("wrote checkpoint %s (N=%d)", path, len(data.mid))
 
     # -- main loop (Simulation::simulate, Simulation.cpp:920-1202) ----------
@@ -668,13 +929,20 @@ class MDSimulation:
         steps: Optional[int] = None,
         print_every: int = 100,
         final_checkpoint: Optional[str] = None,
+        loop_abort_time: float = 0.0,
+        timed_checkpoint: float = 0.0,
+        profile_dir: Optional[str] = None,
+        profile_steps: Tuple[int, int] = (10, 15),
     ):
         steps = steps if steps is not None else self.config.steps
+        # published for plugins that extrapolate progress
         self.total_steps = steps
         eng = self.engine
+        profiler = _ProfileWindow(profile_dir, profile_steps, steps, self.device)
         if not eng.started:
             with self.timers["SIMULATION_FORCE_CALCULATION"]:
                 eng.prepare_start()
+        t_start = _time.time()
         loop_timer = self.timers["SIMULATION_LOOP"]
         loop_timer.start()
         self.run_abort = False
@@ -715,7 +983,10 @@ class MDSimulation:
                 gv, overflow = eng.advance(need_macro)
             ovf_window.append(overflow)
             self.last_globals = gv
+            profiler.tick(k)
             self.time += self.config.timestep
+            if self.step > self.config.equilibration_steps and eng.macro_fresh:
+                self._cv_win.append(gv.upot)
             for p in self._plugins:
                 p.after_forces(self, self.step)
                 p.end_step(self, self.step)
@@ -729,6 +1000,7 @@ class MDSimulation:
                     float(gv.pressure),
                 )
             if self.step % check_every == 0 or k == steps:
+                self._fold_cv()
                 # NaN watchdog FIRST: re-spec'ing garbage state would
                 # only rebuild and re-crash (Simulation.cpp:1236-1239)
                 if not (
@@ -745,12 +1017,24 @@ class MDSimulation:
                 if any_ovf:
                     self._respec_cell_cap(2 * self._cap_or_give_up())
                     eng = self.engine
+            if timed_checkpoint and (_time.time() - t_start) > timed_checkpoint:
+                # walltime-forced checkpoint (Simulation.cpp:1169-1175)
+                self.write_checkpoint("timed.restart.dat")
+                global_log.warning(
+                    "walltime limit: wrote timed.restart.dat at step %d",
+                    self.step,
+                )
+                break
+            if loop_abort_time and (_time.time() - t_start) > loop_abort_time:
+                global_log.warning("loop abort time reached at step %d", self.step)
+                break
             if self.run_abort:
                 global_log.info("run aborted by plugin at step %d", self.step)
                 break
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         loop_timer.stop()
+        profiler.finish()
         for p in self._plugins:
             p.finish(self)
         if final_checkpoint:

@@ -24,6 +24,7 @@ Format parity with src/io/ASCIIReader.cpp:
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import List, Optional
 
@@ -59,8 +60,9 @@ class PhaseSpaceData:
 
 
 class _Tokens:
-    """Tokenizer that remembers byte offsets, so a header-only scan can
-    resume on the full text at the first molecule record."""
+    """Tokenizer that remembers byte offsets, so the record section can be
+    handed to the native scanner (ls1_mardyn_tpu_torch/native) or a
+    header-only scan resume on the full text at the first record."""
 
     def __init__(self, text: str):
         self.toks = []
@@ -103,8 +105,8 @@ class _Tokens:
 def read_inp(path: str) -> PhaseSpaceData:
     with open(path) as f:
         text = f.read()
-    # tokenize the header region first; the record section is
-    # re-tokenized from its byte offset below
+    # tokenize only the header region (records are scanned natively);
+    # fall back to the full text for header-only files
     head = text[: 1 << 22]
     tk = _Tokens(head)
     if len(tk.toks) < 4:
@@ -240,10 +242,25 @@ def read_inp(path: str) -> PhaseSpaceData:
     L = np.zeros((n, 3))
 
     ncols = {"ICRVQDV": 18, "ICRVQD": 15, "ICRV": 8, "IRV": 7}[mol_format]
-    if len(tk.toks) - tk.pos < n * ncols:
-        off = tk.consumed_offset()
-        tk = _Tokens(text[off:])
-    raw = np.array([tk.next_f() for _ in range(n * ncols)]).reshape(n, ncols)
+    raw = None
+    if n > 0:
+        # the record section through the native scanner (native/psio.cpp)
+        from ls1_mardyn_tpu_torch.native import get_psio
+
+        lib = get_psio()
+        if lib is not None:
+            out = np.empty(n * ncols, dtype=np.float64)
+            got = lib.psio_read_records(
+                path.encode(), tk.consumed_offset(), n, ncols,
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            )
+            if got == n * ncols:
+                raw = out.reshape(n, ncols)
+    if raw is None:
+        if len(tk.toks) - tk.pos < n * ncols:
+            off = tk.consumed_offset()
+            tk = _Tokens(text[off:])
+        raw = np.array([tk.next_f() for _ in range(n * ncols)]).reshape(n, ncols)
     mid[:] = raw[:, 0].astype(np.int64)
     if mol_format == "IRV":
         cid[:] = 0
@@ -331,6 +348,33 @@ def write_inp(path: str, data: PhaseSpaceData, mol_format: str = "ICRVQD"):
         n = len(data.mid)
         f.write(f"NumberOfMolecules\t{n}\n")
         f.write(f"MoleculeFormat\t{mol_format}\n")
+        f.flush()
+        # the records through the native writer (%.17g, as the JAX
+        # package's write_inp when its toolchain is there)
+        from ls1_mardyn_tpu_torch.native import get_psio
+
+        lib = get_psio()
+        if lib is not None and n > 0:
+            cols = [data.mid.astype(np.float64)[:, None]]
+            int_cols = [0]
+            if mol_format != "IRV":
+                cols.append((data.cid + 1).astype(np.float64)[:, None])
+                int_cols.append(1)
+            cols += [data.r, data.v]
+            if mol_format in ("ICRVQD", "ICRVQDV"):
+                cols += [data.q, data.L]
+            if mol_format == "ICRVQDV":
+                cols.append(np.zeros((n, 3)))
+            rec = np.ascontiguousarray(np.concatenate(cols, axis=1))
+            ic = np.asarray(int_cols, dtype=np.int64)
+            rc_ = lib.psio_write_records(
+                path.encode(), n, rec.shape[1],
+                rec.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                ic.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+                len(int_cols),
+            )
+            if rc_ == 0:
+                return
         for i in range(n):
             rec = [str(int(data.mid[i]))]
             if mol_format != "IRV":

@@ -353,10 +353,15 @@ def replica_filler(filler: dict, obj: dict, box, base_dir: str = ".") -> tuple:
     inp = filler.get("input", {})
     typ = inp.get("type", "BinaryReader")
     if typ == "BinaryReader":
-        raise NotImplementedError(
-            "ReplicaFiller with a BinaryReader input: io/binary_io.py is "
-            "ported in ROADMAP slice 6"
-        )
+        from ls1_mardyn_tpu_torch.io.binary_io import read_binary_checkpoint
+
+        hdr = inp["header"]
+        dat = inp["data"]
+        if not os.path.isabs(hdr):
+            hdr = os.path.join(base_dir, hdr)
+        if not os.path.isabs(dat):
+            dat = os.path.join(base_dir, dat)
+        cell = read_binary_checkpoint(dat, hdr)
     else:
         from ls1_mardyn_tpu_torch.io.ascii_reader import read_inp
 

@@ -191,6 +191,14 @@ class RMMEngine:
         self._forces_cache = Forces(F=F, M=torch.zeros_like(F), Vi=torch.zeros_like(F))
         self._cache_step = self._step_count
 
+    def slot_velocities_forces(self):
+        """((vx, vy, vz), (Fx, Fy, Fz), valid): views of the dense planes,
+        each [nz, ny, nx*cap], on the device and without the host round
+        trip of `mol`; for observers that only reduce them (MaxWriter)."""
+        p, f = self.sim.state.planes, self.sim.state.forces
+        return ((p[:, :, 4], p[:, :, 5], p[:, :, 6]),
+                (f[:, :, 0], f[:, :, 1], f[:, :, 2]), p[:, :, 3] > 0.5)
+
     @property
     def mol(self) -> MoleculeState:
         if self.sim.state is None:

@@ -184,6 +184,17 @@ def test_package_imports_without_jax():
         "import ls1_mardyn_tpu_torch, torch\n"
         "import ls1_mardyn_tpu_torch.cli, ls1_mardyn_tpu_torch.driver\n"
         "import ls1_mardyn_tpu_torch.interop\n"
+        "import ls1_mardyn_tpu_torch.plugins, ls1_mardyn_tpu_torch.native\n"
+        "import ls1_mardyn_tpu_torch.plugins.writers\n"
+        "import ls1_mardyn_tpu_torch.plugins.diagnostics\n"
+        "import ls1_mardyn_tpu_torch.io.binary_io\n"
+        "import ls1_mardyn_tpu_torch.io.compression\n"
+        "import ls1_mardyn_tpu_torch.ops.rdf\n"
+        "import ls1_mardyn_tpu_torch.utils.meminfo\n"
+        "import ls1_mardyn_tpu_torch.utils.sysmon\n"
+        "import ls1_mardyn_tpu_torch.utils.expression\n"
+        "from ls1_mardyn_tpu_torch.native import get_psio, lz4_compress\n"
+        "assert get_psio() is not None and lz4_compress(b'x')\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
         "assert torch.get_float32_matmul_precision() == 'highest'\n"
@@ -207,7 +218,7 @@ def test_out_of_slice_scene_raises(tmp_path, case, slice_):
     """What later slices bring raises, naming the slice."""
     cfg = _cfg(tmp_path, ensemble="muVT") if case == "muvt" else _cfg(tmp_path)
     if case == "plugin":
-        cfg.output_plugins.append(PluginSpec("ResultWriter", {}))
+        cfg.output_plugins.append(PluginSpec("RDF", {}))
     elif case == "ewald":
         cfg.electrostatic_solver = "Ewald"
     elif case == "planar":
