@@ -16,7 +16,12 @@ checks that every kernel of a path was launched by it:
   - a rigid 2CLJ+quadrupole (CO2-class) fluid of N = 1,061,208 molecules
     (rho 0.45, rc 6.2, T 1.1): MDSimulation(force_mode="auto") ->
     SingleChipSimulation -> CudaMultiSitePackedPath (kernel K5), and
-    force_mode="ms_dense" -> CudaMultiSitePath (kernel K6).
+    force_mode="ms_dense" -> CudaMultiSitePath (kernel K6);
+  - a water-class fluid of N = 1,000,000 (one LJ centre and three
+    charges, rho 0.8, rc 3.0, Ewald accuracy 1e-4): MDSimulation(
+    force_mode="auto") -> SingleChipSimulation with SPME (ops/pme.py) as
+    its extra force -> CudaMultiSitePackedPath (kernel K5, erfc-screened
+    charges).
 
 Phases (each prints one line; any failure raises, so the script exits
 non-zero and never prints the result line):
@@ -129,6 +134,31 @@ non-zero and never prints the result line):
            K5 and K6 also report the candidate tests their warp windows
            walk (and PR 4's block windows), the ordered pairs inside the
            cutoff, and the ptxas registers and spills of each precision
+  longrange-small  long-range drivers on the card vs on the CPU, f64, 20
+           steps: the molten salt (6^3 ions) under ewald_method direct,
+           pme and fmm (N^2 oracle); water-class N=4096 under
+           "ms_packed" with SPME (K5 launched 21 times, every launch with
+           SPME's screen_alpha); a 1CLJ slab in vapour with
+           longrange="planar" (K3 on the general engine, 21 launches):
+           T, p, Upot rtol 1e-9; r, v (q, L) 1e-9
+  longrange  water-class N=1,000,000, f32, "auto": SPME on 256^3 at order
+           6 and K5 with its screen_alpha; 2 + 8 steps (ms/step,
+           molecule-updates/s), T_trans within 10%, unit quaternions,
+           peak memory; each part of a step alone (CUDA events): the K5
+           path's build, K5, gather back, charge sites, splines, spread,
+           the two FFTs, force gather, self/intra corrections, the
+           solver as a whole, the half-kicks; then K5 against its plain
+           version at this path's shapes (f32 1e-5) with its bound, a
+           kernels-line record of its own ("K5 ... (water, SPME
+           screen_alpha)": launches, times and bound from this path)
+  longrange-solvers  SPME vs direct Ewald through the driver (N=8000:
+           Upot 1e-4, F 5e-3 of max); the periodic FMM (depth 5, cap 32,
+           order 8, LJ-only K5) vs SPME through the driver (N=64,000:
+           Upot 2e-3, F 5e-3; ms/step of both); the adaptive FMM on
+           20,000 clustered free-space charges vs the direct sum on the
+           card (f64: U 2e-4, F 5e-3, phi 1e-3; its default chunks);
+           direct Ewald and SPME
+           timed alone from N_sites*K = 1e6 to 2.8e9 (the crossover)
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
 result.
@@ -2003,14 +2033,13 @@ def ms_times(key, kernel, plain, args, kw, nz, slab, smi, bound, **extra):
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
 
-def phase_times_ms(sims, smi):
-    """K5 and K6 beside their plain versions at the shapes the full-width
-    paths gave them, each with its bound."""
-    from ls1_mardyn_tpu_torch.ops import cuda_ms, cuda_ms_packed
+def k5_times(sim, key, smi):
+    """K5 beside its plain version at the shapes the packed path of `sim`
+    gave it (its screen_alpha included), with its bound."""
+    from ls1_mardyn_tpu_torch.ops import cuda_ms_packed
 
-    out = {}
-    path = sims["K5"].engine._force_fn
-    mol = sims["K5"].engine.mol
+    path = sim.engine._force_fn
+    mol = sim.engine.mol
     nx, ny, nz = path.spec.dims
     tbl, r_i, r_j, _, _ = path._build_views(mol)
     kw = dict(nx=nx, ny=ny, nz=nz, cap=path.spec.cap, Wp=path.Wp, Wjp=path.Wjp,
@@ -2027,17 +2056,27 @@ def phase_times_ms(sims, smi):
                   (tbl.numel() * 4 + (r_i.numel() + r_j.numel()) * size),
                   r_i.shape[0] * r_i.shape[1] * 10 * r_i.shape[3], size)
     cells = r_i[:, :, path.cell_plane].round().long()
-    out["K5"] = ms_times("K5", cuda_ms_packed.multisite_cell_forces_packed,
-                         cuda_ms_packed.multisite_cell_forces_packed_reference,
-                         (tbl, r_i, r_j), kw, nz, slab5, smi, b5,
-                         **ms_walk_report("ms_packed", b5, r_i, cells, nx,
-                                          path.spec.cap, tbl))
+    return ms_times(key, cuda_ms_packed.multisite_cell_forces_packed,
+                    cuda_ms_packed.multisite_cell_forces_packed_reference,
+                    (tbl, r_i, r_j), kw, nz, slab5, smi, b5,
+                    grid=list(path.spec.dims), cap=path.spec.cap,
+                    screen_alpha=path.screen_alpha,
+                    **ms_walk_report("ms_packed", b5, r_i, cells, nx,
+                                     path.spec.cap, tbl))
 
+
+def phase_times_ms(sims, smi):
+    """K5 and K6 beside their plain versions at the shapes the full-width
+    paths gave them, each with its bound."""
+    from ls1_mardyn_tpu_torch.ops import cuda_ms
+
+    out = {"K5": k5_times(sims["K5"], "K5", smi)}
     path = sims["K6"].engine._force_fn
     mol = sims["K6"].engine.mol
     nx, ny, nz = path.spec.dims
     r_i, _ = path.layout(mol)
     r_j = path.x_halo(r_i).contiguous()
+    size = r_i.element_size()
     kw6 = dict(nx=nx, ny=ny, nz=nz, cap=path.spec.cap, box=path.spec.box,
                rc2=path.rc2, rc2_lj=path.rc2_lj,
                screen_alpha=path.screen_alpha, meta=path.meta)
@@ -2531,6 +2570,470 @@ def variant_times(rsim, r4, smi, lj_times):
     return out
 
 
+# the long-range scenes: the water class of tools/bench_ms.py (one LJ
+# centre at the COM and three charges of SPC/E geometry at sigma = 1,
+# rho 0.8, rc 3.0, Ewald accuracy 1e-4) and the molten salt of
+# tests/test_ewald_driver.py (6^3 ions of charge +-1 with a small LJ core)
+N_LR, RHO_LR, RC_LR, ACC_LR = 1_000_000, 0.8, 3.0, 1e-4
+# what EwaldParams.tune gives there (alpha 0.987, kmax 64: N_sites * K =
+# 3.3e12), so that "auto" picks SPME on this mesh at order 6
+LR_GRID, LR_ORDER = (256, 256, 256), 6
+WATER_SITES = ((0.0, 0.0, 0.0, -0.8476), (0.316, 0.245, 0.0, 0.4238),
+               (-0.316, 0.245, 0.0, 0.4238))
+# water sizes of the direct-against-SPME crossover (N_sites * K from
+# 1e6 to 2.8e9 at the tuned kmax)
+CROSSOVER_N = (250, 500, 1000, 2000, 3000, 4096, 5000, 8000, 16000)
+
+
+def water_component():
+    from ls1_mardyn_tpu_torch.models.components import Component
+
+    c = Component(cid=0)
+    c.add_ljcenter(0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 0.0, False)
+    for x, y, z, q in WATER_SITES:
+        c.add_charge(x, y, z, 0.0 if q < 0 else 0.01, q)
+    return c
+
+
+def water_scene(n, method="auto", seed=11):
+    """(config, data, L): n water-class molecules on cubic_grid's lattice
+    with random orientations, electrostatic_solver Ewald."""
+    from ls1_mardyn_tpu_torch.io.generators import cubic_grid
+
+    L = (n / RHO_LR) ** (1 / 3)
+    data = cubic_grid(n, [L] * 3, TEMP, components=[water_component()],
+                      seed=seed)
+    q = np.random.default_rng(5).normal(size=(n, 4))
+    data.q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    cfg = scene_config(data.box, RC_LR)
+    cfg.electrostatic_solver, cfg.ewald_accuracy = "Ewald", ACC_LR
+    cfg.ewald_method = method
+    return cfg, data, L
+
+
+def salt_scene(method, n_side=6, d=1.1):
+    """(config, data, L): the molten salt, jittered by up to 0.05 and at
+    T ~ 1 (a perfect lattice at rest has zero forces), rc 2.5, accuracy
+    1e-5, dt 0.001."""
+    from ls1_mardyn_tpu_torch.io.ascii_reader import PhaseSpaceData
+    from ls1_mardyn_tpu_torch.io.xml_config import XMLConfig
+    from ls1_mardyn_tpu_torch.models.components import Component
+
+    comps = []
+    for sign in (1.0, -1.0):
+        c = Component(cid=len(comps))
+        c.add_ljcenter(0, 0, 0, 1.0, 0.2, 1.0)
+        c.add_charge(0, 0, 0, 0.0, sign)
+        comps.append(c)
+    g = np.stack(np.meshgrid(*[np.arange(n_side)] * 3, indexing="ij"), -1)
+    g = g.reshape(-1, 3)
+    rng = np.random.default_rng(17)
+    r = (g + 0.5) * d + rng.uniform(-0.05, 0.05, g.shape)
+    L = n_side * d
+    ones = np.ones((2, 2))
+    cfg = XMLConfig(timestep=0.001, temperature=1.0, box=np.full(3, L),
+                    cutoff=2.5, lj_cutoff=2.5, components=comps, mixing_xi=ones,
+                    mixing_eta=ones, electrostatic_solver="Ewald",
+                    ewald_accuracy=1e-5, ewald_method=method)
+    data = PhaseSpaceData(
+        components=comps, mixing_xi=ones, mixing_eta=ones, eps_rf=1.0,
+        box=np.full(3, L), temperature=1.0, current_time=0.0,
+        mid=np.arange(1, len(r) + 1, dtype=np.int64),
+        cid=np.where(g.sum(1) % 2 == 0, 0, 1).astype(np.int32), r=r,
+        v=rng.normal(0.0, 1.0, r.shape), q=np.tile([1.0, 0, 0, 0], (len(r), 1)),
+        L=np.zeros_like(r))
+    return cfg, data, L
+
+
+def planar_slab_scene(seed=11):
+    """A 1CLJ liquid slab in vapour across y, the axis of the planar
+    correction: a jittered 17^3 lattice (spacing 1.1, rho ~0.75) 5 sigma
+    up y in a (18.7, 60, 18.7) box."""
+    from ls1_mardyn_tpu_torch.io.generators import cubic_grid
+
+    k, a = 17, 1.1
+    box = np.array([k * a, 60.0, k * a])
+    g = np.stack(np.meshgrid(*[np.arange(k)] * 3, indexing="ij"), -1)
+    g = g.reshape(-1, 3).astype(float)
+    data = cubic_grid(len(g), box, TEMP, seed=seed)
+    rng = np.random.default_rng(seed)
+    data.r = (g + 0.5 + rng.uniform(-0.1, 0.1, g.shape)) * a
+    data.r[:, 1] += 5.0
+    return data, box
+
+
+class _AlphaSpy:
+    """Records the screen_alpha of every K5 launch (wraps
+    cuda_ms_packed.launch_packed, which the K5 wrapper calls once per
+    counted launch); the counts stay the wrapper's."""
+
+    def __enter__(self):
+        from ls1_mardyn_tpu_torch.ops import cuda_ms_packed as cmp
+
+        self.mod, self.orig, self.seen = cmp, cmp.launch_packed, []
+
+        def spy(*a, **kw):
+            self.seen.append(float(kw["screen_alpha"]))
+            return self.orig(*a, **kw)
+
+        cmp.launch_packed = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.launch_packed = self.orig
+
+
+def phase_longrange_small(device):
+    """Long-range scenes on the card against the same driver on the CPU
+    (plain versions), f64, 20 steps: the molten salt under ewald_method
+    direct, pme and fmm (the N^2 oracle, erfc-screened for direct and
+    pme, LJ only for fmm); water-class N = 4096 under force_mode
+    "ms_packed" with SPME (K5 with screen_alpha = SPME's alpha); a 1CLJ
+    slab with longrange="planar" (K3 on the general engine).  T, p, Upot
+    rtol 1e-9; r, v (and q, L of the water) 1e-9: the atomic spread moves
+    the last bits between runs, so nothing is compared bit for bit."""
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces_cw
+    from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import (
+        CudaMultiSitePackedPath, multisite_cell_forces_packed)
+    from ls1_mardyn_tpu_torch.ops.ewald import EwaldSolver
+    from ls1_mardyn_tpu_torch.ops.fmm import FMMElectrostatics
+    from ls1_mardyn_tpu_torch.ops.lj_path import CudaLJPath
+    from ls1_mardyn_tpu_torch.ops.pme import PMESolver
+    from ls1_mardyn_tpu_torch.simulation import SingleChipSimulation
+
+    solvers = {"direct": EwaldSolver, "pme": PMESolver, "fmm": FMMElectrostatics}
+    for method, solver in solvers.items():
+        def build(dev, method=method):
+            cfg, data, L = salt_scene(method)
+            return MDSimulation(cfg, dtype=torch.float64, phase_space_data=data,
+                                device=dev), L
+
+        sim, _ = build("cpu")
+        check(isinstance(sim.engine, SingleChipSimulation)
+              and type(sim.ewald) is solver
+              and not hasattr(sim.engine._force_fn, "spec")
+              and (sim._screen_alpha > 0) == (method != "fmm"),
+              f"longrange-small/salt-{method}: engine {type(sim.engine).__name__}, "
+              f"solver {type(sim.ewald).__name__}, alpha {sim._screen_alpha}")
+        compare_devices(f"longrange-small/salt-{method}", build, device, ("r", "v"))
+
+    def water(dev):
+        cfg, data, L = water_scene(4096, method="pme")
+        # an explicit capacity: the measured one (128) would hand the
+        # scene to the N^2 sweep
+        return MDSimulation(cfg, dtype=torch.float64, phase_space_data=data,
+                            device=dev, force_mode="ms_packed", cell_cap=64), L
+
+    sim, _ = water("cpu")
+    alpha = sim.ewald.params.alpha
+    check(isinstance(sim.engine._force_fn, CudaMultiSitePackedPath)
+          and isinstance(sim.ewald, PMESolver)
+          and sim.engine._force_fn.screen_alpha == alpha > 0,
+          "longrange-small/water: not K5 with SPME's screening")
+    multisite_cell_forces_packed.launches = 0
+    with _AlphaSpy() as spy:
+        compare_devices("longrange-small/water-ms_packed", water, device,
+                        ("r", "v", "q", "L"))
+    k5 = multisite_cell_forces_packed.launches
+    check(k5 == 21 and spy.seen == [alpha] * k5,
+          f"longrange-small/water: K5 launches {k5}, screen_alpha {set(spy.seen)}")
+    say("longrange-small/water-ms_packed", K5_launches=k5, screen_alpha=alpha)
+
+    def slab(dev):
+        data, box = planar_slab_scene()
+        cfg = scene_config(box)
+        cfg.longrange = "planar"
+        return MDSimulation(cfg, dtype=torch.float64, phase_space_data=data,
+                            device=dev, cell_cap=32), box
+
+    sim, _ = slab("cpu")
+    path = sim.engine._force_fn
+    check(isinstance(sim.engine, SingleChipSimulation) and sim.planar_lrc
+          and isinstance(path, CudaLJPath) and path.cw and not sim._z_edges,
+          f"longrange-small/planar: engine {type(sim.engine).__name__}, "
+          f"path {type(path).__name__}")
+    lj_cell_forces_cw.launches = 0
+    compare_devices("longrange-small/planar-slab", slab, device, ("r", "v"))
+    k3 = lj_cell_forces_cw.launches
+    check(k3 == 21, f"longrange-small/planar: K3 launches {k3}")
+    say("longrange-small/planar-slab", engine="SingleChipSimulation", kernel="K3",
+        K3_launches=k3)
+
+
+def longrange_parts(sim, reps=3):
+    """Device ms (CUDA events) of each part of an SPME + K5 step, each
+    alone on the current state: the K5 path's build, K5, its gather back;
+    the charge sites, B-spline columns, spread, the two FFTs (with the
+    influence function between them), the force gather, the self and
+    intramolecular corrections; the two half-kicks."""
+    from ls1_mardyn_tpu_torch.ops import pme
+    from ls1_mardyn_tpu_torch.ops.ewald import charge_sites, self_intra_corrections
+    from ls1_mardyn_tpu_torch.ops.integrator import upd_post_force, upd_pre_force
+
+    eng, solver = sim.engine, sim.ewald
+    path, mol, pp, forces = eng._force_fn, eng.mol, eng.pp, eng.forces
+    p, grid = solver.params.order, solver.params.grid
+    tbl, r_i, r_j, bins, prefix = path._build_views(mol)
+    res = path.kernel_packed(tbl, r_i, r_j)
+    offs, rs, wq = charge_sites(mol, pp)
+    rsf, wqf = rs.reshape(-1, 3), wq.reshape(-1)
+    giw = pme._grid_indices_weights(rsf, solver.box, grid, p, with_derivs=True)
+    Q = pme.spread_charges(giw["bw"], giw["w3"], wqf, grid, p)
+    conv = solver.kern * torch.fft.fftn(Q)
+    phi = torch.fft.ifftn(conv).real * float(np.prod(grid))
+    parts = {
+        "build": lambda: path._build_views(mol),
+        "K5": lambda: path.kernel_packed(tbl, r_i, r_j),
+        "gather_back": lambda: path.unpack(res, mol, bins, prefix),
+        "sites": lambda: charge_sites(mol, pp),
+        "splines": lambda: pme._grid_indices_weights(rsf, solver.box, grid, p,
+                                                     with_derivs=True),
+        "spread": lambda: pme.spread_charges(giw["bw"], giw["w3"], wqf, grid, p),
+        "fft": lambda: torch.fft.fftn(Q),
+        "ifft": lambda: torch.fft.ifftn(conv),
+        "force_gather": lambda: pme.gather_forces(
+            giw["bw"], giw["w3"], giw["dw3"], giw["scale"], wqf, phi, grid, p),
+        "self_intra": lambda: self_intra_corrections(mol, solver.params.alpha,
+                                                     rs, wq),
+        "solver_total": lambda: solver(mol, pp),
+        "half_kick_1": lambda: upd_pre_force(mol, forces, pp, DT),
+        "half_kick_2": lambda: upd_post_force(mol, forces, pp, DT),
+    }
+    return {k: round(cuda_ms(fn, reps), 3) for k, fn in parts.items()}
+
+
+def phase_longrange(device, smi):
+    """This slice's path at full width: water-class N = 1,000,000, f32,
+    force_mode "auto" through MDSimulation, which must pick SPME (256^3
+    mesh, order 6) and K5 with SPME's screen_alpha; a warm-up of 2 steps
+    and a window of 8; each part of a step timed alone; then K5 held
+    against its plain version at this path's shapes, with its bound.
+    Returns K5's launches in that run and its times there."""
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+    from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import (
+        CudaMultiSitePackedPath, multisite_cell_forces_packed)
+    from ls1_mardyn_tpu_torch.ops.pme import PMESolver
+
+    cfg, data, _ = water_scene(N_LR)
+    n = len(data.mid)
+    check(n == N_LR, "longrange: N")
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sim = MDSimulation(cfg, phase_space_data=data, device=device, force_mode="auto")
+    t_build = time.perf_counter() - t0
+    eng, solver = sim.engine, sim.ewald
+    path = eng._force_fn
+    check(isinstance(solver, PMESolver) and solver.params.grid == LR_GRID
+          and solver.params.order == LR_ORDER,
+          f"longrange: solver {type(solver).__name__} "
+          f"{getattr(solver, 'params', None)}")
+    alpha = solver.params.alpha
+    check(isinstance(path, CudaMultiSitePackedPath) and path.screen_alpha == alpha > 0,
+          f"longrange: force path {type(path).__name__}")
+    q0 = sim.molecules().q.clone()
+    multisite_cell_forces_packed.launches = 0
+    with _AlphaSpy() as spy:
+        eng.prepare_start()
+        ms0 = timed_window(sim, 2)[0]
+        ms, gv = timed_window(sim, 8)
+    k5 = multisite_cell_forces_packed.launches
+    check(sim.engine is eng, "longrange: cell capacity re-spec")
+    check(k5 == 11 and spy.seen == [alpha] * k5,
+          f"longrange: K5 launches {k5}, screen_alpha {set(spy.seen)}")
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    parts = longrange_parts(sim)
+    ms_state_report(
+        "longrange", sim, gv, n, q0, ms, smi, mem0, solver="SPME",
+        alpha=f"{alpha:.6f}", mesh=solver.params.grid, order=solver.params.order,
+        construct_s=round(t_build, 2), warm_ms_per_step=f"{ms0:.3f}",
+        window_steps=8, K5_launches=k5,
+        screen_alpha_of_K5=json.dumps(sorted(set(spy.seen))),
+        run_peak_mem_GB=f"{peak:.3f}", parts_ms=json.dumps(parts))
+    return k5, k5_times(sim, "K5 water/SPME", smi)
+
+
+def clustered_charges(n, box, seed=11):
+    """tests/test_fmm_adaptive.py's free-space set: three dense clusters
+    and a sparse background (leaves at very different depths), charges
+    uniform in [-1, 1] made neutral."""
+    rng = np.random.default_rng(seed)
+    k = n // 4
+    pts = [np.asarray(c) * box + rng.normal(0, 0.015 * box, (k, 3))
+           for c in ((0.2, 0.2, 0.2), (0.75, 0.7, 0.3), (0.5, 0.55, 0.8))]
+    pts.append(rng.uniform(0.02 * box, 0.98 * box, (n - 3 * k, 3)))
+    r = np.clip(np.concatenate(pts), 1e-6, box * (1 - 1e-6))
+    q = rng.uniform(-1.0, 1.0, n)
+    return r, q - q.mean()
+
+
+def direct_sum(r, q, chunk=2048):
+    """Free-space O(N^2) Coulomb sum on the card: (U, F, phi)."""
+    n = r.shape[0]
+    phi = torch.zeros_like(q)
+    F = torch.zeros_like(r)
+    ids = torch.arange(n, device=r.device)
+    for i0 in range(0, n, chunk):
+        d = r[i0:i0 + chunk, None, :] - r[None, :, :]
+        r2 = (d * d).sum(-1)
+        self_ = ids[i0:i0 + chunk, None] == ids[None, :]
+        inv = torch.where(self_, 0.0, 1.0 / torch.sqrt(torch.where(self_, 1.0, r2)))
+        phi[i0:i0 + chunk] = inv @ q
+        F[i0:i0 + chunk] = q[i0:i0 + chunk, None] * torch.einsum(
+            "ij,ijk->ik", q[None, :] * inv ** 3, d)
+    return 0.5 * float((q * phi).sum()), F, phi
+
+
+def water_state(n, device, dtype=torch.float32):
+    """(mol, pp, box, q2_sum, n_q) of water_scene(n) without a driver."""
+    from ls1_mardyn_tpu_torch.models.components import ComponentTable
+    from ls1_mardyn_tpu_torch.models.interaction import PairParams
+    from ls1_mardyn_tpu_torch.state import MoleculeState
+
+    _, data, L = water_scene(n)
+    table = ComponentTable([water_component()], cutoff=RC_LR, lj_cutoff=RC_LR)
+    mol = MoleculeState.from_numpy(r=data.r, v=data.v, q=data.q, dtype=dtype,
+                                   device=device)
+    pp = PairParams.from_table(table, dtype=dtype, device=device)
+    q2 = n * sum(q * q for *_, q in WATER_SITES)
+    return mol, pp, np.full(3, L), q2, 3 * n
+
+
+def phase_longrange_solvers(device, smi):
+    """Each solver on the card against another: SPME against direct
+    Ewald through the driver (water-class N = 8000, f32, Upot within 1e-4
+    relative, forces within 5e-3 of the largest; the reciprocal energies
+    alone are reported: direct Ewald at the tuned kmax is the less
+    accurate of the two); the periodic FMM against SPME through the driver (N =
+    64,000, f32: total energy within 2e-3 and forces within 5e-3 of the
+    largest, tests/test_ewald_driver.py's and tests/test_fmm.py's
+    limits; ms/step of each); the adaptive FMM on ~20,000 clustered
+    free-space charges against the direct sum (f64, tests/
+    test_fmm_adaptive.py's limits); then direct Ewald and SPME timed
+    alone at N_sites * K around the driver's 2e8 crossover."""
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+    from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import CudaMultiSitePackedPath
+    from ls1_mardyn_tpu_torch.ops.ewald import (
+        EwaldParams, EwaldSolver, charge_sites, self_intra_corrections)
+    from ls1_mardyn_tpu_torch.ops.fmm import FMMElectrostatics
+    from ls1_mardyn_tpu_torch.ops import fmm_adaptive
+    from ls1_mardyn_tpu_torch.ops.fmm_adaptive import AdaptiveFMMSolver
+    from ls1_mardyn_tpu_torch.ops.pme import PMEParams, PMESolver
+
+    def solvers(n):
+        mol, pp, box, q2, nq = water_state(n, device)
+        ep = EwaldParams.tune(box, RC_LR, q2, nq, ACC_LR)
+        pm = PMEParams.tune(box, RC_LR, q2, nq, ACC_LR)
+        return (mol, pp, EwaldSolver(box, ep, torch.float32, device),
+                PMESolver(box, pm, torch.float32, device))
+
+    # SPME against direct Ewald, through the driver (K5 + the solver)
+    runs = {}
+    for method, cls in (("direct", EwaldSolver), ("pme", PMESolver)):
+        cfg, data, _ = water_scene(8000, method=method)
+        sim = MDSimulation(cfg, phase_space_data=data, device=device,
+                           force_mode="auto")
+        check(type(sim.ewald) is cls
+              and isinstance(sim.engine._force_fn, CudaMultiSitePackedPath),
+              f"longrange-solvers/{method}: {type(sim.ewald).__name__}")
+        sim.engine.prepare_start()
+        mol, pp = sim.engine.mol, sim.engine.pp
+        u_k = float(sim.ewald(mol, pp)[0])
+        runs[method] = (float(sim.engine.macro.upot), sim.engine.forces.F.clone(),
+                        u_k, cuda_ms(lambda: sim.ewald(mol, pp), 3), sim.ewald)
+        del sim
+    (ud, Fd, ukd, msd, direct), (um, Fm, ukm, msm, mesh) = runs["direct"], runs["pme"]
+    _, rs, wq = charge_sites(mol, pp)
+    uc = float(self_intra_corrections(mol, direct.params.alpha, rs, wq)[0])
+    rel_u = abs(um - ud) / abs(ud)
+    rel_F = float((Fm - Fd).abs().max() / Fd.abs().max())
+    say("longrange-solvers/pme-vs-direct", n=8000, kmax=direct.params.kmax,
+        n_k=direct.kvec.shape[0], grid=mesh.params.grid, upot_direct=f"{ud:.6f}",
+        upot_pme=f"{um:.6f}", rel_upot=f"{rel_u:.2e}", rel_F=f"{rel_F:.2e}",
+        u_recip_direct=f"{ukd - uc:.6f}", u_recip_pme=f"{ukm - uc:.6f}",
+        rel_u_recip=f"{abs(ukm - ukd) / abs(ukd - uc):.2e}",
+        ms_direct=f"{msd:.3f}", ms_pme=f"{msm:.3f}", gpu=repr(smi))
+    check(rel_u <= 1e-4 and rel_F <= 5e-3,
+          f"longrange-solvers: SPME against direct: Upot {rel_u:.2e}, F {rel_F:.2e}")
+    del mol, pp, direct, mesh, runs
+
+    # the periodic FMM against SPME, through the driver
+    runs = {}
+    for method in ("pme", "fmm"):
+        cfg, data, _ = water_scene(64000, method=method)
+        sim = MDSimulation(cfg, phase_space_data=data, device=device,
+                           force_mode="auto")
+        path = sim.engine._force_fn
+        check(isinstance(path, CudaMultiSitePackedPath)
+              and (path.screen_alpha > 0) == (method == "pme"),
+              f"longrange-solvers/{method}: path {type(path).__name__}")
+        if method == "fmm":
+            check(isinstance(sim.ewald, FMMElectrostatics)
+                  and not sim._table_pair.has_electrostatics()
+                  and sim.ewald.depth == 5 and sim.ewald.solver.cap == 32,
+                  "longrange-solvers/fmm: not the depth-5, cap-32 FMM on an "
+                  "LJ-only K5")
+        sim.engine.prepare_start()
+        u0 = float(sim.engine.macro.upot)
+        F0 = sim.engine.forces.F.clone()
+        timed_window(sim, 1)
+        ms, gv = timed_window(sim, 4)
+        runs[method] = (u0, F0, ms)
+        say(f"longrange-solvers/{method}", n=64000, u0=f"{u0:.6f}",
+            ms_per_step=f"{ms:.3f}", T=f"{float(gv.temperature):.6f}",
+            **({"depth": sim.ewald.depth, "cap": sim.ewald.solver.cap,
+                "order": sim.ewald.solver.order} if method == "fmm" else
+               {"grid": sim.ewald.params.grid}))
+        del sim
+    (up, Fp, msp), (uf, Ff, msf) = runs["pme"], runs["fmm"]
+    rel_u = abs(uf - up) / abs(up)
+    rel_F = float((Ff - Fp).abs().max() / Fp.abs().max())
+    say("longrange-solvers/fmm-vs-pme", rel_u=f"{rel_u:.2e}", rel_F=f"{rel_F:.2e}",
+        ms_pme=f"{msp:.3f}", ms_fmm=f"{msf:.3f}", gpu=repr(smi))
+    check(rel_u <= 2e-3 and rel_F <= 5e-3,
+          f"longrange-solvers: FMM against SPME u {rel_u:.2e}, F {rel_F:.2e}")
+
+    # the adaptive FMM against the direct sum
+    n_a, box_a = 20000, 10.0
+    r_np, q_np = clustered_charges(n_a, box_a)
+    solver = AdaptiveFMMSolver(box=box_a, order=8, threshold=24,
+                               dtype=torch.float64, device=device)
+    t0 = time.perf_counter()
+    plan = solver.build_plan(r_np)
+    t_plan = time.perf_counter() - t0
+    r = torch.as_tensor(r_np, device=device)
+    q = torch.as_tensor(q_np, device=device)
+    U, F, phi = solver.compute(r, q, plan=plan)
+    U0, F0, phi0 = direct_sum(r, q)
+    rel_U = abs(float(U) - U0) / abs(U0)
+    rel_F = float((F - F0).norm(dim=1).max() / F0.norm(dim=1).max())
+    rel_phi = float((phi - phi0).abs().max() / phi0.abs().max())
+    say("longrange-solvers/adaptive-fmm", n=n_a, nodes=int(plan.node_w.sum()),
+        leaves=int((plan.slots >= 0).any(1).sum()),
+        m2l_pairs=int(plan.m2l_w.sum()), p2p_pairs=int(plan.p2p_w.sum()),
+        plan_s=round(t_plan, 2), rel_U=f"{rel_U:.2e}", rel_F=f"{rel_F:.2e}",
+        rel_phi=f"{rel_phi:.2e}", cap=int(plan.slots.shape[1]),
+        pass_bytes=fmm_adaptive.PASS_BYTES,
+        ms_adaptive=f"{cuda_ms(lambda: solver.compute(r, q, plan=plan), 2):.3f}",
+        ms_direct=f"{cuda_ms(lambda: direct_sum(r, q), 2):.3f}")
+    check(rel_U <= 2e-4 and rel_F <= 5e-3 and rel_phi <= 1e-3,
+          "longrange-solvers: adaptive FMM against the direct sum")
+
+    # the auto crossover: each solver alone, f32
+    rows = []
+    for n in CROSSOVER_N:
+        mol, pp, direct, mesh = solvers(n)
+        nk = direct.kvec.shape[0]
+        rows.append(dict(n=n, kmax=direct.params.kmax, n_k=nk,
+                         n_sites_k=f"{3 * n * nk:.3g}", grid=mesh.params.grid[0],
+                         ms_direct=round(cuda_ms(lambda: direct(mol, pp), 3), 3),
+                         ms_pme=round(cuda_ms(lambda: mesh(mol, pp), 3), 3)))
+    first = next((x for x in rows if x["ms_pme"] < x["ms_direct"]), None)
+    say("longrange-solvers/crossover", rows=json.dumps(rows),
+        pme_first_faster=json.dumps(first), gpu=repr(smi))
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2568,8 +3071,16 @@ def main():
     times = phase_times(sim_rmm, sim_gen, smi)
     del sim_rmm, sim_gen
     times.update(phase_times_ms(sims_ms, smi))
+    del sims_ms
+    phase_longrange_small(device)
+    # this slice's path: K5 under SPME's screening, a record of its own
+    # (its launches, times and bound all from the water path)
+    launches["K5 water"], times["K5 water"] = phase_longrange(device, smi)
+    phase_longrange_solvers(device, smi)
     kernels = []
-    for key, (name, src, tpu) in KERNELS.items():
+    for key, (name, src, tpu) in {
+            **KERNELS, "K5 water": (KERNELS["K5"][0] + " (water, SPME screen_alpha)",
+                                    *KERNELS["K5"][1:])}.items():
         check(launches[key] > 0, f"{key} was launched by no path")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu, "launches": launches[key],

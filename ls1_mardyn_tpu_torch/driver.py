@@ -19,15 +19,22 @@ polar scenes and for 1CLJ scenes on non-uniform z rows, the N^2 oracle
 sweep for small scenes with huge cutoffs, or the plain general
 multi-site cell traversal ("cells").
 
+Long-range electrostatics (`<electrostatic type="Ewald">`: direct Ewald,
+SPME or the periodic FMM, ops/ewald.py, ops/pme.py, ops/fmm.py) and the
+planar slab correction (ops/lrc_planar.py) enter through the general
+engine's extra-force hook, so such a scene never takes the RMM engine;
+Ewald and SPME also turn on the erfc screening of every pair path.
+
 Observer plugins (plugins/writers.py, plugins/diagnostics.py) are built
 from the config before the engine and initialised after it; a plugin
 that is not RMM-safe keeps a 1CLJ scene on the general engine.  The
-features of later slices (the other plugins, muVT, long-range solvers)
-raise NotImplementedError naming the ROADMAP slice that brings them.
+features of later slices (the other plugins, muVT) raise
+NotImplementedError naming the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import os
@@ -54,9 +61,13 @@ from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import (
     CudaMultiSitePackedPath,
     pick_ms_grid_packed,
 )
+from ls1_mardyn_tpu_torch.ops.ewald import EwaldParams, EwaldSolver
+from ls1_mardyn_tpu_torch.ops.fmm import FMMElectrostatics
 from ls1_mardyn_tpu_torch.ops.lj_path import CudaLJPath
 from ls1_mardyn_tpu_torch.ops.lrc import HomogeneousLRC, NoLRC
+from ls1_mardyn_tpu_torch.ops.lrc_planar import PlanarLRC
 from ls1_mardyn_tpu_torch.ops.ms_path import CudaMultiSitePath, pick_ms_grid
+from ls1_mardyn_tpu_torch.ops.pme import PMEParams, PMESolver
 from ls1_mardyn_tpu_torch.ops.rmm import CellCapacityError
 from ls1_mardyn_tpu_torch.ops.thermostat import TemperatureControlRegion
 from ls1_mardyn_tpu_torch.plugins import PluginFactory
@@ -191,10 +202,6 @@ class MDSimulation:
             "SIMULATION_IO",
         ):
             self.timers.register(t)
-        if config.electrostatic_solver == "Ewald":
-            raise _out_of_slice("long-range electrostatics", "slice 4")
-        if config.longrange.lower() == "planar":
-            raise _out_of_slice("the planar long-range correction", "slice 4")
         if config.ensemble_type == "muVT":
             raise _out_of_slice("the muVT ensemble", "slice 5")
         # plugins are built BEFORE the engine (their write cadence and
@@ -258,8 +265,18 @@ class MDSimulation:
 
         # long-range correction (Simulation.cpp:514-552 longrange switch)
         ncomp = np.bincount(data.cid, minlength=self.table.K)
+        self.planar_lrc = None
         if config.longrange.lower() in ("homogeneous", ""):
             self.lrc = HomogeneousLRC(self.table, ncomp, self.volume)
+        elif config.longrange.lower() == "planar":
+            # Janecek slab correction as per-step forces and energy
+            # (Planar.{h,cpp}); the scalar correction terms stay zero
+            nslabs = int(float(config.longrange_params.get("slabs", 100)))
+            self.planar_lrc = PlanarLRC(
+                self.table, self.box, nslabs=nslabs, axis=1, dtype=dtype,
+                device=self.device,
+            )
+            self.lrc = NoLRC()
         else:
             self.lrc = NoLRC()
 
@@ -273,6 +290,10 @@ class MDSimulation:
         if not cell_cap:
             cell_cap = self._measure_cell_cap(data, config, n)
         sim_cfg = self._sim_config(data, config, cell_cap)
+        # long-range electrostatics: the solver, the real-space screening
+        # of every pair path, and (FMM) the charge-free pair tables
+        self._screen_alpha = self._build_electrostatics(config, ncomp)
+        sim_cfg = dataclasses.replace(sim_cfg, screen_alpha=self._screen_alpha)
 
         is_1clj = (
             self.table.K == 1
@@ -301,6 +322,7 @@ class MDSimulation:
                     if p.name not in self._RMM_SAFE_PLUGINS)
             )
         force_fn = self._pick_force_fn(data, config, cell_cap, n, is_1clj)
+        extra = self._extra_force_fn()
 
         # -- RMM dense engine (the VCP1CLJRMM + LeapfrogRMM pipeline,
         # Simulation.cpp:819-854): single-component 1CLJ scenes run on
@@ -318,6 +340,9 @@ class MDSimulation:
                 force_mode == "rmm"
                 or (force_mode == "auto" and isinstance(force_fn, CudaLJPath))
             )
+            # long-range forces (Ewald/PME/FMM, the planar correction)
+            # need the general engine's extra-force hook
+            and extra is None
             and sim_cfg.component_thermostat is None
             and not sim_cfg.undirected_thermostats
             and not sim_cfg.temp_control_regions
@@ -351,11 +376,15 @@ class MDSimulation:
         else:
             self.engine = SingleChipSimulation(
                 self.mol, self.pp, self.box, sim_cfg, force_fn=force_fn,
+                extra_force_fn=extra,
             )
             global_log.info(
                 "engine: general single-device engine on %s, grid %s cap %d",
                 self.device, self.engine.spec.dims, self.engine.spec.cap,
             )
+        if isinstance(self.ewald, FMMElectrostatics):
+            # a leaf beyond its capacity raises here, before any step
+            self.ewald.validate(self.mol, self.pp)
         self.last_globals = None
         self.time = float(data.current_time)
         self.step = 0
@@ -563,7 +592,7 @@ class MDSimulation:
                     "(%.2g vs %.2g candidate pairs)", n2_pairs, kernel_pairs,
                 )
             elif is_1clj and not self._z_edges:
-                force_fn = CudaLJPath(self.table, spec)
+                force_fn = CudaLJPath(self._table_pair, spec)
                 global_log.info(
                     "force path: 1CLJ cell kernel (%s), grid %s cap %d",
                     "cell-window K3" if force_fn.cw else "row K4",
@@ -582,10 +611,11 @@ class MDSimulation:
                 27 if max(config.cutoff, config.lj_cutoff) > min(self.box) / 2
                 else 1
             )
-            pp, box = self.pp, self.box
+            pp, box, sa = self._pp_pair, self.box, self._screen_alpha
 
             def force_fn(mol, _images=images):
-                f, m = compute_forces_n2(mol, pp, box, images=_images)
+                f, m = compute_forces_n2(mol, pp, box, images=_images,
+                                         screen_alpha=sa)
                 return f, m, torch.zeros((), dtype=torch.bool, device=mol.r.device)
 
             global_log.info(
@@ -594,6 +624,116 @@ class MDSimulation:
         elif force_fn is None:
             global_log.info("force path: general multi-site cell traversal")
         return force_fn
+
+    def _build_electrostatics(self, config, ncomp) -> float:
+        """The long-range electrostatics solver (self.ewald) of an Ewald
+        config with charged components (JAX driver.py:337-462); returns
+        the real-space screening alpha of the pair paths (0 without a
+        solver, and under the FMM, which owns all Coulomb work).
+
+        ewald_method: "direct" (EwaldSolver), "pme" (PMESolver), "fmm"
+        (FMMElectrostatics; the pair paths run LJ only on a charge-free
+        copy of the tables) or "auto": SPME once N_sites * K > 2e8, the
+        JAX package's crossover (its direct k-space costs O(N_sites * K),
+        the mesh O(N_sites p^3 + G^3 log G))."""
+        self.ewald = None
+        self._table_pair, self._pp_pair = self.table, self.pp
+        if not (config.electrostatic_solver == "Ewald"
+                and self.table.has_electrostatics()):
+            return 0.0
+        # Kolafa-Perram tuning from the charge content
+        q2_sum = sum(int(ncomp[k]) * sum(s.q ** 2 for s in c.charges)
+                     for k, c in enumerate(self.table.components))
+        n_q = sum(int(ncomp[k]) * len(c.charges)
+                  for k, c in enumerate(self.table.components))
+        eparams = EwaldParams.tune(self.box, config.cutoff, q2_sum, n_q,
+                                   accuracy=config.ewald_accuracy)
+        method = config.ewald_method
+        dev, dtype = self.device, self.dtype
+        if method == "fmm":
+            if self._force_mode == "cells":
+                raise ValueError(
+                    "ewald_method='fmm' needs the pallas/oracle force path "
+                    "(force_mode auto); the internal cells path would "
+                    "double-count in-cutoff Coulomb"
+                )
+            if config.fmm_adaptive:
+                # the adaptive container is free-space only, and driver
+                # scenes are periodic (FastMultipoleMethod.cpp:41-43)
+                global_log.warning(
+                    "FastMultipoleMethod: <adaptiveContainer> is IGNORED for "
+                    "this run (threshold=%d): the adaptive solver "
+                    "(ops/fmm_adaptive.AdaptiveFMMSolver) is free-space only "
+                    "and driver scenes are periodic; the uniform periodic "
+                    "octree runs instead", config.fmm_threshold,
+                )
+            self.ewald = FMMElectrostatics(
+                self.box, self.table, self.pp, n_hint=self.mol.capacity,
+                dtype=dtype, order=config.fmm_order, device=dev,
+            )
+            comps = copy.deepcopy(self.table.components)
+            for c in comps:
+                c.charges = []
+            t = self.table
+            self._table_pair = ComponentTable(
+                comps, mixing_xi=t.mixing_xi, mixing_eta=t.mixing_eta,
+                eps_rf=t.eps_rf, cutoff=t.cutoff, lj_cutoff=t.lj_cutoff,
+            )
+            self._pp_pair = PairParams.from_table(self._table_pair, dtype=dtype,
+                                                  device=dev)
+            global_log.info(
+                "electrostatics: solid-harmonics FMM depth=%d order=%d cap=%d "
+                "(pair path runs LJ only)", self.ewald.depth,
+                self.ewald.solver.order, self.ewald.solver.cap,
+            )
+            return 0.0
+        if method == "auto":
+            K = 4.0 / 3.0 * np.pi * eparams.kmax ** 3
+            nsites = self.mol.capacity * int(self.pp.charge_q.shape[1])
+            method = "pme" if nsites * K > 2e8 else "direct"
+        if method == "pme":
+            pparams = PMEParams.tune(self.box, config.cutoff, q2_sum, n_q,
+                                     accuracy=config.ewald_accuracy)
+            self.ewald = PMESolver(self.box, pparams, dtype=dtype, device=dev)
+            global_log.info("electrostatics: SPME alpha=%.4f grid=%s order=%d",
+                            pparams.alpha, pparams.grid, pparams.order)
+            return pparams.alpha
+        if method != "direct":
+            raise ValueError(
+                f"ewald_method={method!r}: one of auto, direct, pme, fmm")
+        self.ewald = EwaldSolver(self.box, eparams, dtype=dtype, device=dev)
+        global_log.info("electrostatics: Ewald alpha=%.4f kmax=%d (%d k-vectors)",
+                        eparams.alpha, eparams.kmax, self.ewald.kvec.shape[0])
+        return eparams.alpha
+
+    def _extra_force_fn(self):
+        """The sum of the long-range extra forces (the solver, the planar
+        correction) under the contract (mol, pp) -> (u, F, M), or None
+        (JAX driver.py:666-696)."""
+        fns = []
+        if self.ewald is not None:
+            fns.append(self.ewald)
+        if self.planar_lrc is not None:
+            planar = self.planar_lrc
+
+            def planar_extra(mol, pp):
+                F, M, u, _vir = planar.forces_torques(mol)
+                return u, F, M
+
+            fns.append(planar_extra)
+        if not fns:
+            return None
+        if len(fns) == 1:
+            return fns[0]
+
+        def extra(mol, pp, _fns=tuple(fns)):
+            u, F, M = _fns[0](mol, pp)
+            for fn in _fns[1:]:
+                ui, Fi, Mi = fn(mol, pp)
+                u, F, M = u + ui, F + Fi, M + Mi
+            return u, F, M
+
+        return extra
 
     def _multisite_path(self, data, config, spec: CellGridSpec):
         """The multi-site kernel path (the JAX driver's
@@ -629,12 +769,14 @@ class MDSimulation:
                 "packed rows need 3, the dense kernel runs", spec.dims)
             use_packed = False
         cls = CudaMultiSitePackedPath if use_packed else CudaMultiSitePath
-        force_fn = cls(self.table, spec)
+        force_fn = cls(self._table_pair, spec, screen_alpha=self._screen_alpha)
         global_log.info(
-            "force path: multi-site kernel %s, grid %s, cap %d, %d planes",
+            "force path: multi-site kernel %s, grid %s, cap %d, %d planes, "
+            "screen_alpha %g",
             "K5 (occupancy-packed)" if use_packed else "K6 (dense)",
             spec.dims, spec.cap,
             force_fn.Pb if use_packed else force_fn.meta.P,
+            self._screen_alpha,
         )
         return force_fn
 
@@ -857,6 +999,7 @@ class MDSimulation:
         # accessors translate through self._axis_swap); clock and
         # counters live on self and continue
         self.engine = rebuilt.engine
+        self.ewald, self.planar_lrc = rebuilt.ewald, rebuilt.planar_lrc
         self._axis_swap = rebuilt._axis_swap
         self._z_edges = rebuilt._z_edges
         self.box = rebuilt.box

@@ -27,6 +27,24 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def canonical_device(device) -> torch.device:
+    """resolve_device with the card's index filled in, so that it
+    compares equal to a tensor's .device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def on_device(x, device: torch.device, what: str, **kw) -> torch.Tensor:
+    """x as a tensor on `device` (a solver's, from canonical_device): a
+    host array is sent there; a tensor on another device raises, so
+    that no work moves off the card unasked."""
+    if isinstance(x, torch.Tensor) and x.device != device:
+        raise ValueError(f"{what} is on {x.device}, the solver on {device}")
+    return torch.as_tensor(x, device=device, **kw)
+
+
 @dataclasses.dataclass
 class MoleculeState:
     """Dense molecule arrays; capacity N may exceed the live count

@@ -190,6 +190,9 @@ def test_package_imports_without_jax():
         "import ls1_mardyn_tpu_torch.io.binary_io\n"
         "import ls1_mardyn_tpu_torch.io.compression\n"
         "import ls1_mardyn_tpu_torch.ops.rdf\n"
+        "import ls1_mardyn_tpu_torch.ops.ewald, ls1_mardyn_tpu_torch.ops.pme\n"
+        "import ls1_mardyn_tpu_torch.ops.lrc_planar\n"
+        "import ls1_mardyn_tpu_torch.ops.fmm, ls1_mardyn_tpu_torch.ops.fmm_adaptive\n"
         "import ls1_mardyn_tpu_torch.utils.meminfo\n"
         "import ls1_mardyn_tpu_torch.utils.sysmon\n"
         "import ls1_mardyn_tpu_torch.utils.expression\n"
@@ -210,19 +213,14 @@ def _cfg(tmp_path, n=1200, **kw):
     return read_xml_config(path)
 
 
-@pytest.mark.parametrize(
-    "case,slice_",
-    [("muvt", 5), ("plugin", 6), ("ewald", 4), ("planar", 4)],
-)
+@pytest.mark.parametrize("case,slice_", [("muvt", 5), ("plugin", 6)])
 def test_out_of_slice_scene_raises(tmp_path, case, slice_):
-    """What later slices bring raises, naming the slice."""
+    """What later slices bring raises, naming the slice (long-range
+    electrostatics and the planar correction are ported:
+    tests/test_torch_longrange_driver.py)."""
     cfg = _cfg(tmp_path, ensemble="muVT") if case == "muvt" else _cfg(tmp_path)
     if case == "plugin":
         cfg.output_plugins.append(PluginSpec("RDF", {}))
-    elif case == "ewald":
-        cfg.electrostatic_solver = "Ewald"
-    elif case == "planar":
-        cfg.longrange = "planar"
     with pytest.raises(NotImplementedError, match=f"ROADMAP slice {slice_}"):
         MDSimulation(cfg, dtype=torch.float64, device="cpu")
 
