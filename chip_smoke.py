@@ -21,7 +21,15 @@ checks that every kernel of a path was launched by it:
     charges, rho 0.8, rc 3.0, Ewald accuracy 1e-4): MDSimulation(
     force_mode="auto") -> SingleChipSimulation with SPME (ops/pme.py) as
     its extra force -> CudaMultiSitePackedPath (kernel K5, erfc-screened
-    charges).
+    charges);
+  - an evaporation-class muVT film of N ~ 4,194,304 (MkTcTS: liquid
+    slab at rho 0.6 over 80% of the box in vapour at 0.02, rc 2.5, T
+    1.1, mu -1.0, 8 instances every 2 steps in the vapour): MDSimulation
+    -> SingleChipSimulation -> CudaLJPath (kernel K3) with the
+    grand-canonical ensemble, CavityWriter and WidomInsertion; and the
+    same film as a steady evaporation under MettDeamon, its
+    FeedrateDirector, a Mirror type 5 sink and DistControl (two
+    components: kernel K5).
 
 Phases (each prints one line; any failure raises, so the script exits
 non-zero and never prints the result line):
@@ -159,6 +167,34 @@ non-zero and never prints the result line):
            card (f64: U 2e-4, F 5e-3, phi 1e-3; its default chunks);
            direct Ewald and SPME
            timed alone from N_sites*K = 1e6 to 2.8e9 (the crossover)
+  ensembles-small  the muVT driver on the card vs on the CPU, f64, 20
+           steps, the same draws on both: a 1CLJ fluid (N=3000, K3, 4+4
+           trials a step) with CavityWriter and WidomInsertion, a 2CLJQ
+           fluid on ms_packed (N=5832, K5, multi-site probes), a 1CLJ
+           liquid of N=16384 (the cell-table probe): counters identical,
+           T, p, Upot rtol 1e-9, r, v, q, L 1e-9 over the valid slots,
+           valid and mid identical, .cav.xyz and .widom files rtol 1e-9
+  nemd-small  the sixteen state-changing plugins on the JAX tests'
+           scenes, card vs CPU as ensembles-small: Mirror types 1, 2, 5
+           and 6, WallPotential 93/104, MettDeamon with its
+           FeedrateDirector and DistControl, DriftCtrl, PosNegComp,
+           ExtractPhase, FixRegion, COMaligner, InMemoryCheckpointing
+           (also alone on the RMM engine), Dropaligner, Dropaccelerator,
+           MirrorSystem; the engine of each scene asserted
+  muvt     the film at full width, f32: a warm-up and a 16-step window
+           (ms/step, molecule-updates/s), the same window without the
+           ensemble (GCMC's cost a step and a cycle), one cycle alone
+           (ms, kernel launches by torch.profiler), the counters, N read
+           before and after the run, T within 10%, peak memory; then K3
+           against its plain version at this path's shapes (f32 1e-5)
+           with its bound, a kernels-line record of its own ("K3 ...
+           (muVT film)")
+  nemd     the film as a steady evaporation (NVT, f32; MettDeamon feeding
+           the lower vapour from a reservoir cut from the start state, a
+           Mirror type 5 sink, the FeedrateDirector, DistControl): 64
+           steps, then 16-step windows with and without the plugin set
+           (ms/step of each), host reads a step, molecules inserted,
+           released and deleted
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
 result.
@@ -1287,11 +1323,12 @@ def timed_window(sim, steps):
     return (time.perf_counter() - t1) / steps * 1e3, gv
 
 
-def check_globals(phase, gv, n):
+def check_globals(phase, gv, n=None):
+    """Finite T/p/Upot, T within 10% of TEMP and, given n, n molecules."""
     T, p, U = float(gv.temperature), float(gv.pressure), float(gv.upot)
     check(all(np.isfinite([T, p, U])), f"{phase}: non-finite T/p/Upot")
     check(abs(T / TEMP - 1) <= 0.1, f"{phase}: T={T} not within 10% of {TEMP}")
-    check(int(float(gv.n)) == n, f"{phase}: lost molecules")
+    check(n is None or int(float(gv.n)) == n, f"{phase}: lost molecules")
     return T, p, U
 
 
@@ -1875,8 +1912,8 @@ MS_SCREENED_CC_OPS = 77
 
 def ms_bound(mol, spec, meta, rc2, screened, in_bytes, out_elems, size):
     """Least time the card could take for a multi-site call on this
-    state: the bytes (inputs once, output planes once) over the memory
-    rate, against the operations this data needs over the f32 peak: 8 per
+    state: the bytes (in_bytes, the inputs once as needed_bytes counts
+    them; output planes once) over the memory rate, against the operations this data needs over the f32 peak: 8 per
     candidate UNORDERED pair of two molecules in the same or neighbouring
     cells and, per pair inside the cutoff, the site-pair program's terms
     (MS_TERM_OPS, MS_SCREENED_CC_OPS).  The pairs inside the cutoff are counted by a K3
@@ -1906,6 +1943,8 @@ def ms_bound(mol, spec, meta, rc2, screened, in_bytes, out_elems, size):
     t_ops = (8 * candidates + per_pair * inside) / PEAK_F32_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "in_bytes": in_bytes, "out_bytes": out_elems * size,
             "candidates": candidates, "inside": inside,
             "ops_per_inside_pair": per_pair}
 
@@ -2053,7 +2092,7 @@ def k5_times(sim, key, smi):
     size = r_i.element_size()
     b5 = ms_bound(mol, path.spec, path.meta, max(path.rc2, path.rc2_lj),
                   path.screen_alpha > 0,
-                  (tbl.numel() * 4 + (r_i.numel() + r_j.numel()) * size),
+                  tbl.numel() * 4 + needed_bytes(r_i) + needed_bytes(r_j),
                   r_i.shape[0] * r_i.shape[1] * 10 * r_i.shape[3], size)
     cells = r_i[:, :, path.cell_plane].round().long()
     return ms_times(key, cuda_ms_packed.multisite_cell_forces_packed,
@@ -2087,7 +2126,7 @@ def phase_times_ms(sims, smi):
 
     b6 = ms_bound(mol, path.spec, path.meta, max(path.rc2, path.rc2_lj),
                   path.screen_alpha > 0,
-                  (r_i.numel() + r_j.numel()) * size,
+                  needed_bytes(r_i) + needed_bytes(r_j),
                   r_i.numel() // r_i.shape[2] * 10, size)
     slots = torch.arange(r_i.shape[-1], device=r_i.device) // path.spec.cap
     out["K6"] = ms_times("K6", cuda_ms.multisite_cell_forces,
@@ -2199,9 +2238,20 @@ def lj_warp_walk(r_i, dims, cap, cell_len, rc2, cull=True, split=True,
             "block_skeleton_iterations_per_warp": 13.5 * cap if half else 27 * cap}
 
 
-def lj_bound(r_i, dims, cap, lj, out_planes, j_elems, nbytes=None):
+def needed_bytes(planes):
+    """Bytes a function must read of a [..., P, slots] plane set whose
+    plane 3 is the validity flag (the LJ kernels' xyz + valid; the
+    multi-site kernels' rows): the flag of every slot and the other
+    planes of the occupied ones (an empty slot's are never used)."""
+    P = planes.shape[-2]
+    occupied = int((planes[..., 3, :] > 0.5).sum())
+    return (planes.numel() // P + (P - 1) * occupied) * planes.element_size()
+
+
+def lj_bound(r_i, dims, cap, lj, out_planes, r_j=None, nbytes=None):
     """Least time the card could take for an LJ cell-force call on these
-    inputs: bytes (inputs read once, the force planes written once)
+    inputs: bytes (the inputs read once, as needed_bytes counts them for
+    r_i and for a kernel's j copy r_j; the force planes written once)
     over the memory rate, against the operations this data needs over
     the f32 peak.  The function needs each UNORDERED pair once (Newton's
     third law; the kernels evaluate every pair from both sides, which is
@@ -2234,9 +2284,9 @@ def lj_bound(r_i, dims, cap, lj, out_planes, j_elems, nbytes=None):
     else:
         ordered = inside_pairs(r_i, **kw)
     inside = ordered / 2.0
-    size = r_i.element_size()
     if nbytes is None:
-        nbytes = (r_i.numel() + j_elems + out_planes * r_i.numel() // 4) * size
+        nbytes = needed_bytes(r_i) + (0 if r_j is None else needed_bytes(r_j)) \
+            + out_planes * r_i.numel() // 4 * r_i.element_size()
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = (8 * candidates + 25 * inside) / PEAK_F32_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -2276,7 +2326,7 @@ def phase_times(sim_rmm, sim_gen, smi):
                              cuda_lj.lj_cell_forces_reference, (r4,),
                              dict(dims=dims, cap=cap, cell_len=rsim.cell_len, **lj))
     bound = lj_bound(r4.contiguous(), dims, cap,
-                     dict(cell_len=rsim.cell_len, rc2=rsim.rc2), 3, 0)
+                     dict(cell_len=rsim.cell_len, rc2=rsim.rc2), 3)
     pairs = 27 * cap ** 2 * rsim.spec.n_cells
     say("times", kernel="K1", grid=dims, cap=cap, pair_lanes=pairs,
         ms_fast=f"{res[False][0]:.3f}", plain_ms_fast=f"{res[False][1]:.3f}",
@@ -2327,16 +2377,16 @@ def phase_times(sim_rmm, sim_gen, smi):
     dims, cap = path.spec.dims, path.spec.cap
     lj = dict(eps24=path.eps24, sig2=path.sig2, shift6=path.shift6, rc2=path.rc2)
     pairs = 27 * cap ** 2 * path.spec.n_cells
-    for key, fn, ref, args, kw, jel in (
+    for key, fn, ref, args, kw, jpl in (
         ("K3", cuda_lj.lj_cell_forces_cw, cuda_lj.lj_cell_forces_cw_reference,
-         (r_i,), dict(dims=dims, cap=cap, cell_len=path.spec.cell_len, **lj), 0),
+         (r_i,), dict(dims=dims, cap=cap, cell_len=path.spec.cell_len, **lj), None),
         ("K4", cuda_lj.lj_cell_forces_row, cuda_lj.lj_cell_forces_row_reference,
          (r_i, r_j), dict(dims=dims, cap=cap, box=path.spec.box,
-                          local_coords=True, **lj), r_j.numel()),
+                          local_coords=True, **lj), r_j),
     ):
         res, err, rel = lj_times(key, fn, ref, args, kw)
         bound = lj_bound(r_i, dims, cap,
-                         dict(cell_len=path.spec.cell_len, rc2=path.rc2), 3, jel)
+                         dict(cell_len=path.spec.cell_len, rc2=path.rc2), 3, jpl)
         extra = {}
         if key == "K3":
             extra["ms_macro_vi"] = "%.3f" % cuda_ms(
@@ -2515,7 +2565,7 @@ def variant_times(rsim, r4, smi, lj_times):
     cases = (
         ("K7", V.lj_cell_forces_lanej, row_ref, (r_i, r_j),
          dict(dims=dims, cap=cap, box=rsim.spec.box, **lj),
-         dict(j_elems=r_j.numel()), {}),
+         dict(r_j=r_j), {}),
         ("K8", V.lj_cell_forces_n3l, V.lj_cell_forces_n3l_reference, (r4,), local,
          {}, {}),
         ("K9", V.lj_cell_forces_zb, V.lj_cell_forces_zb_reference, (r4,), local, {},
@@ -2528,7 +2578,7 @@ def variant_times(rsim, r4, smi, lj_times):
     for key, fn, ref, args, kw, bkw, extra in cases:
         res, err, rel = lj_times(key, fn, ref, args, kw)
         bound = lj_bound(r_i, dims, cap, dict(cell_len=rsim.cell_len, rc2=rsim.rc2),
-                         3, **{"j_elems": 0, **bkw})
+                         3, **bkw)
         more = {}
         for mode, (f, g) in extra.items():
             more["ms_" + mode] = "%.3f" % cuda_ms(
@@ -3034,6 +3084,602 @@ def phase_longrange_solvers(device, smi):
         pme_first_faster=json.dumps(first), gpu=repr(smi))
 
 
+# -- ensembles and the plugins that change the molecule set --------------
+# the evaporation-class muVT film (tools/muvt_scale.py's "evap" scene,
+# the MkTcTS film of ls1's Evaporation/Adsorption examples): a liquid
+# slab of 80% of the box along y in vapour, the chemical potential's
+# control volume in the vapour (y >= 0.95 L), 8 instances every 2 steps
+N_MUVT = 4_194_304
+RHO_LIQ, RHO_VAP, LIQ_FRAC = 0.60, 0.02, 0.80
+MU_EVAP, INSTANCES_EVAP, EVERY_EVAP = -1.0, 8, 2
+MUVT_WARM, MUVT_WIN = 4, 16
+# nemd: the steps before its windows (MettDeamon's first bin at ~60)
+NEMD_WARM = 64
+# the samplers of the film: CavityWriter's 10^3 probes and 16 Widom
+# insertions, both every 10 steps
+SAMPLE_EVERY = 10
+
+
+def film_data(n_target, seed=42, frozen_planes=0):
+    """The port's MkTcTS film (io/generators.mktcts) of about n_target
+    molecules: (data, L, lattice period along y).  frozen_planes > 0
+    (the nemd phase): the lattice planes of the vapour at the bottom,
+    y < frozen_planes * period / 2, belong to a second, identical
+    component (MettDeamon's frozen variant) and start at rest."""
+    from ls1_mardyn_tpu_torch.io.generators import mktcts
+
+    rho_eff = RHO_LIQ * LIQ_FRAC + RHO_VAP * (1 - LIQ_FRAC)
+    L = (n_target / rho_eff) ** (1 / 3)
+    comps = _two_lj(rc=RC) if frozen_planes else None
+    data = mktcts(RHO_LIQ, RHO_VAP, [L, L, L], TEMP, liq_fraction=LIQ_FRAC,
+                  components=comps, seed=seed)
+    # the generator's two interleaved lattices put a plane every half period
+    period = 2.0 * float(np.diff(np.unique(np.round(data.r[:, 1], 6))).min())
+    if frozen_planes:
+        frozen = data.r[:, 1] < frozen_planes * period / 2
+        data.cid = np.where(frozen, 1, 0).astype(data.cid.dtype)
+        data.v[frozen] = 0.0
+    return data, L, period
+
+
+def muvt_config(box, mu, instances, every, lower_y=None, plugins=()):
+    """scene_config under muVT with one chemical potential of component
+    1 (control volume y >= lower_y when given) and output plugins."""
+    from ls1_mardyn_tpu_torch.io.xml_config import PluginSpec
+
+    cfg = scene_config(box)
+    cfg.ensemble_type = "muVT"
+    p = {"mu": str(mu), "cid": "1", "everyNTimesteps": str(every),
+         "instances": str(instances)}
+    if lower_y is not None:
+        p["control"] = {"lower": {"x": 0.0, "y": lower_y, "z": 0.0},
+                        "upper": {"x": box[0], "y": box[1], "z": box[2]}}
+    cfg.chemical_potentials = [PluginSpec("ChemicalPotential", p)]
+    cfg.output_plugins = list(plugins)
+    return cfg
+
+
+def sampler_specs(d, freq, grid=10, insertions=16):
+    """CavityWriter (grid^3 probes) and WidomInsertion (insertions) into
+    d every freq steps."""
+    from ls1_mardyn_tpu_torch.io.xml_config import PluginSpec
+
+    return [PluginSpec("CavityWriter", {
+                "writefrequency": str(freq), "outputprefix": os.path.join(d, "cav"),
+                "Nx": str(grid), "Ny": str(grid), "Nz": str(grid),
+                "radius": "1.0", "maxNeighbours": "0"}),
+            PluginSpec("WidomInsertion", {
+                "cid": "1", "insertions": str(insertions),
+                "samplefrequency": str(freq), "writefrequency": str(freq),
+                "temperature": str(TEMP), "outputprefix": os.path.join(d, "widom")})]
+
+
+def inject_draws(sim, seed):
+    """The ensemble's and Widom's draws made on the host from seed and
+    sent to the run's device: a run on the card and one on the CPU then
+    take every decision alike."""
+    if sim.gc is not None:
+        rng, gc = np.random.default_rng(seed), sim.gc
+
+        def draws(icp, dtype):
+            cp = gc.chem_pots[icp]
+            nd, ni = cp.deletions_per_interval, cp.insertions_per_interval
+            return (torch.as_tensor(rng.uniform(size=(nd + ni, 4)), dtype=dtype,
+                                    device=gc.device),
+                    torch.as_tensor(rng.normal(size=(ni, 7)), dtype=dtype,
+                                    device=gc.device))
+
+        gc.draws = draws
+    for p in sim._plugins:
+        if p.name == "WidomInsertion":
+            wrng = np.random.default_rng(seed + 1)
+            p.draws = lambda n, dtype, device, wrng=wrng: (
+                torch.as_tensor(wrng.uniform(size=(n, 3)), dtype=dtype, device=device),
+                torch.as_tensor(wrng.normal(size=(n, 4)), dtype=dtype, device=device))
+
+
+def slot_state(sim):
+    mol = sim.engine.mol
+    return {k: getattr(mol, k).cpu().numpy() for k in
+            ("r", "v", "q", "L", "cid", "mid", "valid")}
+
+
+def compare_slots(phase, a, b, box):
+    """Two runs' states slot by slot: validity, ids and components
+    identical; r (minimum image), v, q, L over the valid slots within
+    1e-9 of their largest magnitude.  Returns the worst differences."""
+    for k in ("valid", "mid", "cid"):
+        check(np.array_equal(a[k], b[k]), f"{phase}: {k} differs slot by slot")
+    ok = a["valid"]
+    err = {}
+    for k in ("r", "v", "q", "L"):
+        d = a[k][ok] - b[k][ok]
+        if k == "r":
+            d -= box * np.round(d / box)
+        err[k] = float(np.abs(d).max() / max(1.0, np.abs(b[k][ok]).max()))
+    check(max(err.values()) <= 1e-9, f"{phase}: states differ ({err})")
+    return err
+
+
+def run_on_both(phase, build, device, steps=20):
+    """build(dev, dir) -> sim on the card and on the CPU, f64, run for
+    `steps` steps from its directory with the same draws; globals within
+    rtol 1e-9, states slot by slot, every file of the two directories
+    within rtol 1e-9.  Returns the card's sim, the worst differences and
+    the CPU sim."""
+    out = []
+    here = os.getcwd()
+    for dev in (device, "cpu"):
+        d = fresh_dir(f"{phase.replace('/', '_')}_{dev}_{len(out)}")
+        os.chdir(d)
+        try:
+            sim = build(dev, d)
+            inject_draws(sim, 5)
+            gv = sim.run(steps=steps, print_every=0)
+        finally:
+            os.chdir(here)
+        out.append((sim, gv, slot_state(sim), d))
+    (sa, ga, xa, da), (sb, gb, xb, db) = out
+    rel = {k: abs(float(getattr(ga, k)) / float(getattr(gb, k)) - 1)
+           for k in ("temperature", "pressure", "upot")}
+    check(max(rel.values()) <= 1e-9, f"{phase}: globals differ ({rel})")
+    err = compare_slots(phase, xa, xb, np.asarray(sa.box))
+    files = compare_outputs(phase, da, db)
+    check(max(files.values(), default=0.0) <= 1e-9,
+          f"{phase}: card and CPU files differ ({files})")
+    err.update(rel)
+    return sa, {**err, **{f: e for f, e in files.items()}}, sb
+
+
+def phase_ensembles_small(device):
+    """The muVT driver on the card against the CPU, f64, 20 steps, the
+    same draws on both: a 1CLJ fluid (K3; four insertions and
+    four deletions a step; N = 3000 at rho 0.35) with CavityWriter and
+    WidomInsertion, a 2CLJQ fluid on ms_packed (K5; multi-site probes;
+    N = 5832 at rho 0.2) and a 1CLJ liquid of CELL_PROBE_MIN_N molecules
+    (the cell-table probe).  Counters identical,
+    T/p/Upot rtol 1e-9, states slot by slot, files within rtol 1e-9."""
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+    from ls1_mardyn_tpu_torch.ensemble.grand_canonical import GrandCanonicalEnsemble
+    from ls1_mardyn_tpu_torch.ops import cuda_lj, cuda_ms_packed
+    from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import CudaMultiSitePackedPath
+    from ls1_mardyn_tpu_torch.ops.lj_path import CudaLJPath
+
+    t0 = time.perf_counter()
+    scenes = (
+        # tag, n, rho, kind, force_mode, mu, instances, every, path, counter
+        # (the smallest sizes and densities at which the cost rule runs
+        # the kernel, not the N^2 sweep, and mu accepts both moves)
+        ("1clj", 3000, 0.35, "1clj", "pallas", -2.0, 4, 1, CudaLJPath,
+         cuda_lj.lj_cell_forces_cw),
+        ("2cljq", 5832, 0.2, "2cljq", "ms_packed", -2.5, 2, 2,
+         CudaMultiSitePackedPath, cuda_ms_packed.multisite_cell_forces_packed),
+        ("cell", GrandCanonicalEnsemble.CELL_PROBE_MIN_N, 0.5, "1clj", "pallas",
+         -3.0, 4, 2, CudaLJPath, cuda_lj.lj_cell_forces_cw),
+    )
+    for tag, n, rho, kind, mode, mu, inst, every, path_t, counter in scenes:
+        def build(dev, d):
+            data, L = lattice_scene(n, rho, kind)
+            plugins = sampler_specs(d, 5, grid=5, insertions=32) if tag == "1clj" else ()
+            sim = MDSimulation(muvt_config(data.box, mu, inst, every, plugins=plugins),
+                               dtype=torch.float64, phase_space_data=data,
+                               device=dev, force_mode=mode)
+            check(isinstance(sim.engine._force_fn, path_t) and sim.gc is not None,
+                  f"ensembles-small/{tag}: path {type(sim.engine._force_fn)}")
+            if dev != "cpu":  # the card's run, before the CPU's
+                counter.launches = 0
+            return sim
+
+        sim, err, cpu = run_on_both(f"ensembles-small/{tag}", build, device)
+        launches = counter.launches
+        counts = [(s.gc.attempted, s.gc.accepted_ins, s.gc.accepted_del)
+                  for s in (sim, cpu)]
+        check(counts[0] == counts[1], f"ensembles-small/{tag}: counters {counts}")
+        check(counts[0][1] > 0 and counts[0][2] > 0,
+              f"ensembles-small/{tag}: no insertion or no deletion accepted")
+        check(launches >= 20, f"ensembles-small/{tag}: {launches} kernel launches")
+        cell = sim.gc._probe_caps[0] is not None
+        check(cell == (tag == "cell"), f"ensembles-small/{tag}: probe {sim.gc._probe_caps}")
+        say("ensembles-small", scene=tag, n=n, capacity=sim.engine.mol.capacity,
+            engine=type(sim.engine).__name__, path=path_t.__name__,
+            launches=launches, probe="cell" if cell else "row",
+            attempted=counts[0][0], accepted_ins=counts[0][1],
+            accepted_del=counts[0][2],
+            rel=json.dumps({k: f"{e:.1e}" for k, e in err.items()}))
+    say("ensembles-small", seconds=round(time.perf_counter() - t0, 1))
+
+
+def _lattice(n, box, T=1.0, seed=42, shift_y=0.0, side_y=None, components=None):
+    from ls1_mardyn_tpu_torch.io.generators import cubic_grid
+
+    box = np.asarray(box, float)
+    extent = [box[0], side_y or box[1], box[2]]
+    data = cubic_grid(n, extent, T, seed=seed, components=components)
+    data.r[:, 1] += shift_y
+    data.box = box
+    return data
+
+
+def _two_lj(n=2, rc=0.0):
+    """n identical one-centre LJ components (eps = sigma = m = 1)."""
+    from ls1_mardyn_tpu_torch.models.components import Component
+
+    comps = []
+    for k in range(n):
+        c = Component(cid=k)
+        c.add_ljcenter(0.0, 0.0, 0.0, 1.0, 1.0, 1.0, rc)
+        comps.append(c)
+    return comps
+
+
+def _merge(a, b):
+    """Two PhaseSpaceData of one box as one (ids renumbered)."""
+    import dataclasses
+
+    cat = {k: np.concatenate([getattr(a, k), getattr(b, k)])
+           for k in ("r", "v", "q", "L", "cid")}
+    return dataclasses.replace(a, mid=np.arange(1, len(cat["r"]) + 1), **cat)
+
+
+def mett_small_scene():
+    """nemd-small's evaporation: a lattice film in y [10, 20) (component
+    1), and MettDeamon's reservoir, one lattice plane at the bottom of
+    the box (component 2, frozen, at rest), with nothing between them, so
+    that the riding molecules meet no one; the sink (Mirror type 5) sits
+    just below the film's top plane.  Returns (data, lattice period of
+    the reservoir along y, the sink's y)."""
+    comps = _two_lj()
+    film = _lattice(448, [8.0, 30.0, 8.0], 0.8, seed=12, shift_y=10.0, side_y=10.0,
+                    components=comps)
+    res = _lattice(2000, [8.0, 30.0, 8.0], 0.8, seed=3, components=comps)
+    period = 2.0 * float(np.diff(np.unique(np.round(res.r[:, 1], 6))).min())
+    bottom = res.r[:, 1] < 0.5 * period
+    res.r, res.q, res.L = res.r[bottom], res.q[bottom], res.L[bottom]
+    res.v = np.zeros_like(res.r)
+    res.cid = np.ones(len(res.r), film.cid.dtype)
+    return _merge(film, res), period, float(film.r[:, 1].max()) - 0.1
+
+
+def nemd_small_scenes():
+    """(tag, data, T, plugins, engine) of nemd-small (NVT, dt 0.002, rc 2.5):
+    the scenes of the JAX package's tests of these plugins
+    (tests/test_plugins_nemd.py, test_nemd2.py, test_extra_plugins.py,
+    test_wallpotential.py)."""
+    L = (216 / 0.4) ** (1 / 3)
+    L5 = (125 / 0.4) ** (1 / 3)
+    wall = {"potential": "93", "density": "0.9", "sigma": "1.0", "epsilon": "1.0",
+            "yoff": "0.0", "ycut": "2.0", "width": "0.0"}
+
+    def mirror(t, pos, d, **kw):
+        return ("Mirror", dict({"type": str(t), "position": str(pos), "axis": "1",
+                                "direction": str(d)}, **kw))
+
+    mett, period, sink_y = mett_small_scene()
+    # bins of one lattice period, fed in 8 steps: a bin goes in where its
+    # riding original was
+    feed = {"control": {"feed": {"init": str(period / 8), "direction": "1",
+                                 "method": "4"}},
+            "reservoir": {"width": str(2 * period), "binwidth": str(period)},
+            "changes": {"change": {"from": "1", "to": "2"}}, "writefrequency": "5"}
+    film = _lattice(448, [8.0, 30.0, 8.0], 0.8, seed=12, shift_y=10.0, side_y=10.0,
+                    components=_two_lj())
+    return (
+        ("mirror1", _lattice(216, [L, 8.0, L], 1.0, shift_y=2.2, side_y=3.6), 1.0,
+         [mirror(1, 5.5, 1), mirror(1, 2.5, -1)], "general"),
+        ("mirror2_wall93", _lattice(216, [L, 8.0, L], 1.0, shift_y=2.2, side_y=3.6),
+         1.0,
+         [mirror(2, 5.5, 1, forceConstant="50.0"),
+          mirror(2, 2.5, -1, forceConstant="50.0"),
+          ("WallPotential", dict(wall, yoff="1.0"))],
+         "general"),
+        ("mirror6_wall104", _lattice(216, [L, 8.0, L], 1.5, shift_y=0.3, side_y=4.0),
+         1.5,
+         [mirror(6, 3.9, 1, ramping={"start": "0", "stop": "10", "treatment": "0"}),
+          ("WallPotential", dict(wall, potential="104", delta="0.7"))], "general"),
+        ("mettdeamon", mett, 0.8,
+         [("MettDeamon", feed),
+          ("Mirror", {"type": "5", "position": str(sink_y), "axis": "1",
+                      "dir": "o-|", "meland": {"velo_target": "0.5"}}),
+          ("MettDeamonFeedrateDirector", {"updatefreq": "20"}),
+          ("DistControl", {"control": {"update": "5"}, "subdivision": {"number": "30"},
+                           "outputprefix": "dist"})], "general"),
+        ("drift", film, 0.8,
+         [("DriftCtrl", {"control": {"freq": {"control": "3"}},
+                         "target": {"cid": "1", "drift": {"vx": "0.5"}},
+                         "range": {"yl": "10", "yr": "20",
+                                   "subdivision": {"binwidth": "2.5"}}}),
+          ("PosNegComp", {"cid_ub_pos": "1", "cid_ub_neg": "2"}),
+          ("ExtractPhase", {"step": "4", "left": "10.5", "right": "19.5"})],
+         "general"),
+        ("fix", _lattice(216, [L, L, L]), 1.0,
+         [("FixRegion", {"ymin": "0", "ymax": "2.0"}), ("COMaligner", {"interval": "5"}),
+          ("InMemoryCheckpointing", {"writefrequency": "5",
+                                     "restartAtIteration": "12"})], "general"),
+        ("drop", _lattice(125, [L5, L5, L5]), 1.0,
+         [("MirrorSystem", {"yPos": "0.0"}),
+          ("Dropaccelerator", {"xposition": "3", "yposition": "3", "zposition": "3",
+                               "dropradius": "2", "velocity": "1.0",
+                               "starttime": "1", "steps": "3"}),
+          ("Dropaligner", {"xpos": "4.5", "ypos": "4.5", "zpos": "4.5",
+                           "radius": "3", "interval": "2"})], "general"),
+        ("checkpoint_rmm", _lattice(1500, [(1500 / 0.6) ** (1 / 3)] * 3), 1.0,
+         [("InMemoryCheckpointing", {"writefrequency": "5",
+                                     "restartAtIteration": "12"})], "rmm"),
+    )
+
+
+def plugin_counts(sim):
+    """The counters of a run's state-changing plugins."""
+    out = {}
+    for i, p in enumerate(sim._plugins):
+        for a in ("reflected", "deleted", "inserted", "released", "deleted_sum",
+                  "active_bin", "left", "right", "feed_actual", "feed_sum"):
+            if hasattr(type(p), a) or a in vars(p):
+                out[f"{i}:{p.name}.{a}"] = getattr(p, a)
+    return out
+
+
+def phase_nemd_small(device):
+    """The sixteen plugins' scenes (the JAX tests' scenes) on the card
+    against the CPU, f64, 20 steps: the engine of each scene asserted,
+    every plugin counter identical, T/p/Upot rtol 1e-9, states slot by
+    slot within 1e-9, files (DistControl, MettDeamon_feed.dat) within
+    rtol 1e-9."""
+    import copy
+
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+    from ls1_mardyn_tpu_torch.io.xml_config import PluginSpec, XMLConfig
+
+    t0 = time.perf_counter()
+    for tag, data0, T, plugins, engine in nemd_small_scenes():
+        def build(dev, d):
+            data = copy.deepcopy(data0)
+            cfg = XMLConfig(timestep=DT, temperature=T, box=np.asarray(data.box),
+                            cutoff=RC, lj_cutoff=RC, ensemble_type="NVT",
+                            components=data.components,
+                            plugins=[PluginSpec(nm, copy.deepcopy(pr))
+                                     for nm, pr in plugins])
+            sim = MDSimulation(cfg, dtype=torch.float64, phase_space_data=data,
+                               device=dev)
+            name = type(sim.engine).__name__
+            check(name == {"general": "SingleChipSimulation",
+                           "rmm": "RMMEngine"}[engine],
+                  f"nemd-small/{tag}: engine {name}")
+            return sim
+
+        sim, err, cpu = run_on_both(f"nemd-small/{tag}", build, device)
+        counts = plugin_counts(sim)
+        check(counts == plugin_counts(cpu),
+              f"nemd-small/{tag}: counters {counts} against {plugin_counts(cpu)}")
+        say("nemd-small", scene=tag, engine=type(sim.engine).__name__,
+            n=int(sim.engine.mol.valid.sum()),
+            plugins=",".join(p.name for p in sim._plugins),
+            counts=json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                               for k, v in counts.items()}),
+            rel=json.dumps({k: f"{e:.1e}" for k, e in err.items()}))
+    say("nemd-small", seconds=round(time.perf_counter() - t0, 1))
+
+
+def count_launches(fn):
+    """(kernels on the device, kernel launches by the host) of fn(),
+    from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = host = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev += 1
+        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
+            host += 1
+    return dev, host
+
+
+def k3_path_times(sim, smi, phase):
+    """K3 against its plain version at the shapes the general path gives
+    it on sim's state (f32 1e-5), with its bound; the kernels-line
+    record's numbers."""
+    from ls1_mardyn_tpu_torch.ops import cuda_lj
+
+    eng = sim.engine
+    path = eng._force_fn
+    r_i, _ = path.layout(eng.mol)
+    dims, cap = path.spec.dims, path.spec.cap
+    kw = dict(dims=dims, cap=cap, cell_len=path.spec.cell_len, eps24=path.eps24,
+              sig2=path.sig2, shift6=path.shift6, rc2=path.rc2)
+    fn, ref = cuda_lj.lj_cell_forces_cw, cuda_lj.lj_cell_forces_cw_reference
+    ms = cuda_ms(lambda: fn(r_i, compute_macro=True, **kw), 10)
+    plain = cuda_ms(lambda: ref(r_i, compute_macro=True, **kw), 1)
+    a, b = fn(r_i, **kw), ref(r_i, **kw)
+    err = float((a[0] - b[0]).abs().max())
+    rel = max(rel_errors(a, b))
+    check(rel <= 1e-5, f"{phase}: K3 at its path's shape: rel err {rel}")
+    bound = lj_bound(r_i, dims, cap, dict(cell_len=path.spec.cell_len, rc2=path.rc2),
+                     3)
+    say(phase, kernel="K3", grid=dims, cap=cap, ms_macro=f"{ms:.3f}",
+        plain_ms_macro=f"{plain:.3f}", max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
+        bound=json.dumps(bound), gpu=repr(smi))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound["bound_ms"],
+                bound_by=bound["bound_by"])
+
+
+def film_report(phase, gv, n):
+    """check_globals on a film whose molecule set changes (its counts
+    are checked against the counters), as printed fields."""
+    T, p, U = check_globals(phase, gv)
+    return dict(T=f"{T:.6f}", p=f"{p:.6f}", upot_per_mol=f"{U / n:.6f}")
+
+
+def phase_muvt(device, smi):
+    """This slice's path at full width: the evaporation-class muVT film
+    (N ~ 4.2e6, f32) on the general engine with K3, CavityWriter and
+    WidomInsertion every 10 steps.  A warm-up and a 16-step window, then
+    the same window with the ensemble switched off (GCMC's cost a step
+    and a cycle), one cycle alone (its launches and ms), the counters, N
+    read before the run and again after it (two readbacks), T within 10%
+    and peak memory; then K3 against its plain version at this path's
+    shapes with its bound.  Returns K3's launches in the run and its
+    times there."""
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces_cw, lj_cell_forces_row
+    from ls1_mardyn_tpu_torch.ops.lj_path import CudaLJPath
+    from ls1_mardyn_tpu_torch.simulation import SingleChipSimulation
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    data, L, _period = film_data(N_MUVT)
+    d = fresh_dir("muvt")
+    cfg = muvt_config(data.box, MU_EVAP, INSTANCES_EVAP, EVERY_EVAP,
+                      lower_y=(LIQ_FRAC + 0.15) * L,
+                      plugins=sampler_specs(d, SAMPLE_EVERY))
+    sim = MDSimulation(cfg, phase_space_data=data, device=device, force_mode="auto")
+    eng, gc = sim.engine, sim.gc
+    path = eng._force_fn
+    check(isinstance(eng, SingleChipSimulation) and isinstance(path, CudaLJPath)
+          and path.cw and gc is not None, "muvt: engine, force path or ensemble")
+    n_before = int(eng.mol.valid.sum())  # readback 1
+    t_build = time.perf_counter() - t0
+    lj_cell_forces_cw.launches = lj_cell_forces_row.launches = 0
+    eng.prepare_start()
+    ms_warm, _ = timed_window(sim, MUVT_WARM)
+    ms_gc, gv = timed_window(sim, MUVT_WIN)
+    k3 = lj_cell_forces_cw.launches
+    check(k3 == 1 + MUVT_WARM + MUVT_WIN and lj_cell_forces_row.launches == 0,
+          f"muvt: K3 launched {k3} times in {MUVT_WARM + MUVT_WIN} steps")
+    check(sim.engine is eng, "muvt: cell capacity re-spec")
+    cycles = gc.cycles
+    sim.gc = None
+    ms_md, gv_md = timed_window(sim, MUVT_WIN)
+    sim.gc = gc
+    check(gc.cycles == cycles, "muvt: the ensemble ran while switched off")
+    # one cycle alone on the current state (its result discarded)
+    saved = (gc.attempted, gc.accepted_ins, gc.accepted_del, gc.cycles)
+    step = sim.step + (-sim.step % EVERY_EVAP)
+    dev_k, host_k = count_launches(lambda: gc.step(eng.mol, sim.pp, step))
+    cyc_ms = cuda_ms(lambda: gc.step(eng.mol, sim.pp, step), 3)
+    gc.attempted, gc.accepted_ins, gc.accepted_del, gc.cycles = saved
+    n_after = int(sim.engine.mol.valid.sum())  # readback 2
+    check(n_after == n_before + gc.accepted_ins - gc.accepted_del,
+          f"muvt: N {n_before} -> {n_after} against the counters")
+    check(gc.attempted == cycles * 2 * INSTANCES_EVAP and gc.accepted_ins > 0,
+          f"muvt: attempted {gc.attempted}, accepted {gc.accepted_ins}")
+    rep = film_report("muvt", gv_md, n_after)
+    files = sorted(os.listdir(d))
+    check(any(f.endswith(".cav.xyz") for f in files) and "widom.widom" in files,
+          f"muvt: sampler files {files}")
+    widom = [p for p in sim._plugins if p.name == "WidomInsertion"][0]
+    say("muvt", n_before=n_before, n_after=n_after, capacity=eng.mol.capacity,
+        box=f"{L:.4f}", grid=path.spec.dims, cap=path.spec.cap,
+        probe=json.dumps(gc._probe_caps.get(0)), construct_s=round(t_build, 2),
+        warm_ms_per_step=f"{ms_warm:.3f}", window_steps=MUVT_WIN,
+        ms_per_step=f"{ms_gc:.3f}", updates_per_s=f"{n_after / ms_gc * 1e3:.4e}",
+        ms_per_step_without_gcmc=f"{ms_md:.3f}",
+        gcmc_ms_per_step=f"{ms_gc - ms_md:.3f}",
+        gcmc_ms_per_cycle=f"{(ms_gc - ms_md) * EVERY_EVAP:.3f}",
+        cycle_alone_ms=f"{cyc_ms:.3f}", cycle_device_kernels=dev_k,
+        cycle_host_launches=host_k, cycles=gc.cycles, attempted=gc.attempted,
+        accepted_ins=gc.accepted_ins, accepted_del=gc.accepted_del,
+        K3_launches=k3, mu_excess=f"{widom.mu_excess:.6f}", files=len(files),
+        peak_mem_GB=f"{(torch.cuda.max_memory_allocated() - mem0) / 1e9:.3f}",
+        gpu=repr(smi), **rep)
+    times = k3_path_times(sim, smi, "muvt")
+    say("muvt", seconds=round(time.perf_counter() - t0, 1))
+    return k3, times
+
+
+def phase_nemd(device, smi):
+    """The film as a steady evaporation (NVT, f32, N ~ 4.2e6): a Mirror
+    type 5 sink at y = 0.95 L deletes most outward movers of the upper
+    vapour; MettDeamon feeds the lower vapour from a reservoir cut from
+    the start state (the 4 lattice planes below y = 2 periods, frozen and
+    at rest, in bins of one lattice period, so that a bin goes in exactly
+    where the lattice continues) at a constant feed of one period in 60
+    steps (a ride slower than thermal motion: a pinned molecule does not
+    ram its neighbours); the FeedrateDirector resets the feed from the
+    outflow at step 80; DistControl tracks the interfaces every 8 steps.
+    A warm-up of 64 steps (the first bin goes in at step ~60, into the
+    slots the sink freed), a 16-step window with the set and one without
+    it; the host reads a step, and the counts inserted, released and
+    deleted.  Two components: the multi-site path (K5); then K5 held
+    against its plain version at this path's shapes, with its bound.
+    Returns K5's launches in the run and its times there."""
+    from ls1_mardyn_tpu_torch.driver import MDSimulation
+    from ls1_mardyn_tpu_torch.io.xml_config import PluginSpec
+    from ls1_mardyn_tpu_torch.ops import cuda_ms_packed
+    from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import CudaMultiSitePackedPath
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    data, L, period = film_data(N_MUVT, frozen_planes=4)
+    warm = NEMD_WARM
+    d = fresh_dir("nemd")
+    cfg = scene_config(data.box)
+    cfg.components = data.components
+    cfg.plugins = [
+        PluginSpec("MettDeamon", {
+            "control": {"feed": {"init": str(period / 60), "direction": "1",
+                                 "method": "4"}},
+            "reservoir": {"width": str(2 * period), "binwidth": str(period)},
+            "changes": {"change": {"from": "1", "to": "2"}},
+            "writefrequency": "8"}),
+        PluginSpec("MettDeamonFeedrateDirector",
+                   {"updatefreq": str(warm + MUVT_WIN)}),
+        PluginSpec("Mirror", {"type": "5", "position": str(0.95 * L), "axis": "1",
+                              "dir": "o-|", "meland": {"velo_target": "0.5"}}),
+        PluginSpec("DistControl", {"control": {"update": "8"},
+                                   "subdivision": {"number": "100"},
+                                   "outputprefix": os.path.join(d, "dist")}),
+    ]
+    here = os.getcwd()
+    os.chdir(d)  # MettDeamon_feed.dat
+    try:
+        sim = MDSimulation(cfg, phase_space_data=data, device=device, force_mode="auto")
+        md, director, sink, dist = sim._plugins
+        path = sim.engine._force_fn
+        check(isinstance(path, CudaMultiSitePackedPath),
+              f"nemd: force path {type(path).__name__}")
+        n0 = int(sim.engine.mol.valid.sum())
+        cuda_ms_packed.multisite_cell_forces_packed.launches = 0
+        sim.engine.prepare_start()
+        ms_warm, _ = timed_window(sim, warm)
+        reads0 = md.reads + director.reads + sink.reads + dist.reads
+        ms_set, gv = timed_window(sim, MUVT_WIN)
+        reads = md.reads + director.reads + sink.reads + dist.reads - reads0
+        counts = dict(inserted=md.inserted, released=md.released,
+                      sink_deleted=sink.deleted, sink_reflected=sink.reflected,
+                      net_deleted=md.deleted_sum, feed_after_director=f"{md.feed_actual:.6g}",
+                      left=f"{dist.left:.4f}", right=f"{dist.right:.4f}")
+        n1 = int(sim.engine.mol.valid.sum())
+        plugins, sim._plugins = sim._plugins, []
+        ms_bare, gv_bare = timed_window(sim, MUVT_WIN)
+        sim._plugins = plugins
+    finally:
+        os.chdir(here)
+    k5 = cuda_ms_packed.multisite_cell_forces_packed.launches
+    check(md.inserted > 0 and md.released > 0 and sink.deleted > 0,
+          f"nemd: counts {counts}")
+    check(n1 == n0 - sink.deleted + md.inserted, f"nemd: N {n0} -> {n1}, {counts}")
+    check(k5 == 1 + warm + 2 * MUVT_WIN, f"nemd: K5 launched {k5} times")
+    rep = film_report("nemd", gv, n1)
+    say("nemd", n_before=n0, n_after=n1, box=f"{L:.4f}", period=f"{period:.6f}",
+        engine=type(sim.engine).__name__,
+        path=type(sim.engine._force_fn).__name__, K5_launches=k5,
+        warm_steps=warm, warm_ms_per_step=f"{ms_warm:.3f}", window_steps=MUVT_WIN,
+        ms_per_step_with_set=f"{ms_set:.3f}", ms_per_step_without=f"{ms_bare:.3f}",
+        set_ms_per_step=f"{ms_set - ms_bare:.3f}",
+        host_reads_per_step=f"{reads / MUVT_WIN:.3f}", counts=json.dumps(counts),
+        T_without=f"{float(gv_bare.temperature):.6f}",
+        peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        gpu=repr(smi), **rep)
+    times = k5_times(sim, "K5 NEMD film", smi)
+    say("nemd", seconds=round(time.perf_counter() - t0, 1))
+    return k5, times
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3077,10 +3723,20 @@ def main():
     # (its launches, times and bound all from the water path)
     launches["K5 water"], times["K5 water"] = phase_longrange(device, smi)
     phase_longrange_solvers(device, smi)
+    phase_ensembles_small(device)
+    phase_nemd_small(device)
+    # this slice's path: K3 on the muVT film, a record of its own
+    launches["K3 muVT film"], times["K3 muVT film"] = phase_muvt(device, smi)
+    # and K5 on the NEMD film, a record of its own
+    launches["K5 NEMD film"], times["K5 NEMD film"] = phase_nemd(device, smi)
     kernels = []
     for key, (name, src, tpu) in {
             **KERNELS, "K5 water": (KERNELS["K5"][0] + " (water, SPME screen_alpha)",
-                                    *KERNELS["K5"][1:])}.items():
+                                    *KERNELS["K5"][1:]),
+            "K3 muVT film": (KERNELS["K3"][0] + " (muVT film, general engine)",
+                             *KERNELS["K3"][1:]),
+            "K5 NEMD film": (KERNELS["K5"][0] + " (NEMD film, two components)",
+                             *KERNELS["K5"][1:])}.items():
         check(launches[key] > 0, f"{key} was launched by no path")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu, "launches": launches[key],

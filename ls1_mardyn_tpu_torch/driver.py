@@ -25,11 +25,15 @@ planar slab correction (ops/lrc_planar.py) enter through the general
 engine's extra-force hook, so such a scene never takes the RMM engine;
 Ewald and SPME also turn on the erfc screening of every pair path.
 
-Observer plugins (plugins/writers.py, plugins/diagnostics.py) are built
-from the config before the engine and initialised after it; a plugin
-that is not RMM-safe keeps a 1CLJ scene on the general engine.  The
-features of later slices (the other plugins, muVT) raise
-NotImplementedError naming the ROADMAP slice that brings them.
+Plugins are built from the config before the engine and initialised
+after it; a plugin that is not RMM-safe keeps a 1CLJ scene on the
+general engine, and a plugin's siteWiseForces contribution (Mirror type
+2, WallPotential) enters the general engine's extra force, summed before
+the long-range ones.  The muVT ensemble (ensemble/grand_canonical.py)
+runs on the general engine with reserve slots for insertions; its cycle
+runs after the step's forces and before the plugins' afterForces hooks.
+The observer plugins of a later slice raise NotImplementedError naming
+the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
@@ -44,6 +48,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ls1_mardyn_tpu_torch.ensemble.grand_canonical import (
+    GrandCanonicalEnsemble,
+    _build_chemical_potentials,
+)
 from ls1_mardyn_tpu_torch.io.ascii_reader import PhaseSpaceData, read_inp, write_inp
 from ls1_mardyn_tpu_torch.io.generators import (
     cubic_grid,
@@ -89,18 +97,15 @@ def _cap_for(occ: int) -> int:
 
 
 # the plugins of the JAX package's registry that this package does not
-# register yet (ROADMAP slice 6b): a config naming one is refused
+# register yet (ROADMAP slice 6b, the observers): a config naming one is
+# refused
 LATER_PLUGINS = frozenset({
-    "COMaligner", "CavityWriter", "CommunicationPartnerWriter",
-    "DecompWriter", "DirectedPM", "DistControl", "DomainProfiles",
-    "DriftCtrl", "Dropaccelerator", "Dropaligner", "ExamplePlugin",
-    "ExtractPhase", "FixRegion", "GammaWriter", "HaloParticleWriter",
-    "InMemoryCheckpointing", "KDTreePrinter", "LoadbalanceWriter",
-    "MPICheckpointWriter", "MettDeamon", "MettDeamonFeedrateDirector",
-    "Mirror", "MirrorSystem", "MmpldWriter", "MmspdBinWriter", "MmspdWriter",
-    "ODF", "Permittivity", "PosNegComp", "PovWriter", "RDF",
-    "RegionSampling", "SpatialProfile", "SteereoControl", "VISWriter",
-    "VTKGridWriter", "VTKMoleculeWriter", "WallPotential", "WidomInsertion",
+    "CommunicationPartnerWriter", "DecompWriter", "DirectedPM",
+    "DomainProfiles", "ExamplePlugin", "GammaWriter", "HaloParticleWriter",
+    "KDTreePrinter", "LoadbalanceWriter", "MPICheckpointWriter",
+    "MmpldWriter", "MmspdBinWriter", "MmspdWriter", "ODF", "Permittivity",
+    "PovWriter", "RDF", "RegionSampling", "SpatialProfile", "SteereoControl",
+    "VISWriter", "VTKGridWriter", "VTKMoleculeWriter",
 })
 
 
@@ -181,9 +186,11 @@ class MDSimulation:
         phase_space_data: Optional[PhaseSpaceData] = None,
         allow_axis_swap: bool = True,
         device="cuda",
-        # the adaptive re-spec hands its plugins to the rebuilt driver:
-        # they are neither built again nor initialised again
+        # the adaptive re-spec hands its plugins and its grand-canonical
+        # ensemble to the rebuilt driver: they are neither built again
+        # nor initialised again
         _plugins: Optional[list] = None,
+        _gc: Optional[GrandCanonicalEnsemble] = None,
     ):
         self.device = resolve_device(device)
         if force_mode not in _FORCE_MODES:
@@ -202,8 +209,6 @@ class MDSimulation:
             "SIMULATION_IO",
         ):
             self.timers.register(t)
-        if config.ensemble_type == "muVT":
-            raise _out_of_slice("the muVT ensemble", "slice 5")
         # plugins are built BEFORE the engine (their write cadence and
         # their RMM safety pick it); init(sim) runs after the engine
         # exists, at the end of __init__ (JAX driver.py:654-659, 815-816)
@@ -257,9 +262,13 @@ class MDSimulation:
         self.box = np.asarray(data.box, float)
         self.volume = float(np.prod(self.box))
         n = len(data.mid)
+        # muVT needs free slots for insertions (the reserve-slot design:
+        # insertion activates a masked slot; JAX driver.py:152-161)
+        muvt = config.ensemble_type == "muVT"
         self.mol = MoleculeState.from_numpy(
             r=data.r, v=data.v, q=data.q, L=data.L,
             cid=data.cid, mid=data.mid.astype(np.int32),
+            capacity=n + max(64, n // 8) if muvt else None,
             dtype=dtype, device=self.device,
         )
 
@@ -313,6 +322,11 @@ class MDSimulation:
             or getattr(p, "name", "") in self._RMM_SAFE_PLUGINS
             for p in self._plugins
         )
+        if force_mode == "rmm" and muvt:
+            raise ValueError(
+                "force_mode='rmm': the muVT ensemble inserts into and deletes "
+                "from the flat state, which the RMM engine does not keep "
+                "(auto runs this scene on the general engine)")
         if force_mode == "rmm" and not rmm_safe:
             raise ValueError(
                 "force_mode='rmm': plugin(s) %s write the state or need "
@@ -348,6 +362,7 @@ class MDSimulation:
             and not sim_cfg.temp_control_regions
             and n > 0
             and rmm_safe
+            and not muvt
         )
         if rmm_ok:
             rc = config.lj_cutoff
@@ -385,6 +400,12 @@ class MDSimulation:
         if isinstance(self.ewald, FMMElectrostatics):
             # a leaf beyond its capacity raises here, before any step
             self.ewald.validate(self.mol, self.pp)
+        # muVT: grand-canonical moves after the step's forces
+        self.gc = _gc
+        if muvt and _gc is None:
+            self.gc = GrandCanonicalEnsemble(
+                self._chemical_potentials(config), config.temperature,
+                self.box, device=self.device)
         self.last_globals = None
         self.time = float(data.current_time)
         self.step = 0
@@ -707,10 +728,15 @@ class MDSimulation:
         return eparams.alpha
 
     def _extra_force_fn(self):
-        """The sum of the long-range extra forces (the solver, the planar
-        correction) under the contract (mol, pp) -> (u, F, M), or None
-        (JAX driver.py:666-696)."""
+        """The sum of the extra forces under the contract (mol, pp) ->
+        (u, F, M), or None: the plugins' siteWiseForces contributions,
+        then the long-range solver and the planar correction, in the JAX
+        driver's order (driver.py:668-696)."""
         fns = []
+        for p in self._plugins:
+            fn = p.site_wise_forces_fn(self.table, self.box)
+            if fn is not None:
+                fns.append(fn)
         if self.ewald is not None:
             fns.append(self.ewald)
         if self.planar_lrc is not None:
@@ -779,6 +805,21 @@ class MDSimulation:
             self._screen_alpha,
         )
         return force_fn
+
+    def _chemical_potentials(self, config):
+        """The config's chemical potentials, their control volumes in the
+        engine frame: under an axis swap the world-frame bounds are
+        permuted like the positions (the JAX driver applies them to the
+        engine frame unpermuted: ROADMAP Queue 3)."""
+        perm = self._swap_perm() if self._axis_swap is not None else [0, 1, 2]
+        world_box = np.asarray(self.box)[perm]  # a transposition
+        cps = _build_chemical_potentials(config.chemical_potentials, world_box)
+        for cp in cps:
+            if cp.control_lower is not None:
+                cp.control_lower = np.asarray(cp.control_lower)[perm]
+            if cp.control_upper is not None:
+                cp.control_upper = np.asarray(cp.control_upper)[perm]
+        return cps
 
     def _swap_perm(self):
         """Column permutation exchanging the swap axis with z."""
@@ -987,7 +1028,7 @@ class MDSimulation:
         # built, no file is truncated, and its engine gate still sees them
         kw = dict(dtype=self.dtype, force_mode=self._force_mode,
                   phase_space_data=data, device=self.device,
-                  _plugins=self._plugins)
+                  _plugins=self._plugins, _gc=self.gc)
         # re-MEASURE from the current state first (cell_cap=0): this
         # re-runs the axis-swap/adaptive-row detection too, which an
         # explicit cap would skip; only force the doubled cap if
@@ -1130,6 +1171,8 @@ class MDSimulation:
             self.time += self.config.timestep
             if self.step > self.config.equilibration_steps and eng.macro_fresh:
                 self._cv_win.append(gv.upot)
+            if self.gc is not None:
+                eng.mol = self.gc.step(eng.mol, self.pp, self.step)
             for p in self._plugins:
                 p.after_forces(self, self.step)
                 p.end_step(self, self.step)

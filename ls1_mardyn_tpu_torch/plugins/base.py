@@ -26,6 +26,15 @@ class PluginBase:
     def init(self, sim) -> None:  # PluginBase.h:69
         pass
 
+    def site_wise_forces_fn(self, table, box):
+        """The siteWiseForces hook slot (PluginBase.h:88-130): a
+        `(mol, pp) -> (u, F [N,3], M [N,3])` force-field contribution
+        (torch tensors on the state's device) that the engine adds
+        inside every force evaluation, so that it enters U_pot and the
+        integration like any other force; or None.  Called once when the
+        engine is built, before init(sim)."""
+        return None
+
     def finish(self, sim) -> None:  # PluginBase.h:139
         pass
 

@@ -187,6 +187,11 @@ def test_package_imports_without_jax():
         "import ls1_mardyn_tpu_torch.plugins, ls1_mardyn_tpu_torch.native\n"
         "import ls1_mardyn_tpu_torch.plugins.writers\n"
         "import ls1_mardyn_tpu_torch.plugins.diagnostics\n"
+        "import ls1_mardyn_tpu_torch.plugins.nemd, ls1_mardyn_tpu_torch.plugins.nemd2\n"
+        "import ls1_mardyn_tpu_torch.plugins.mettdeamon\n"
+        "import ls1_mardyn_tpu_torch.plugins.extra, ls1_mardyn_tpu_torch.plugins.widom\n"
+        "import ls1_mardyn_tpu_torch.ensemble.grand_canonical\n"
+        "import ls1_mardyn_tpu_torch.ensemble.cavity\n"
         "import ls1_mardyn_tpu_torch.io.binary_io\n"
         "import ls1_mardyn_tpu_torch.io.compression\n"
         "import ls1_mardyn_tpu_torch.ops.rdf\n"
@@ -213,14 +218,14 @@ def _cfg(tmp_path, n=1200, **kw):
     return read_xml_config(path)
 
 
-@pytest.mark.parametrize("case,slice_", [("muvt", 5), ("plugin", 6)])
+@pytest.mark.parametrize("case,slice_", [("plugin", 6)])
 def test_out_of_slice_scene_raises(tmp_path, case, slice_):
     """What later slices bring raises, naming the slice (long-range
     electrostatics and the planar correction are ported:
-    tests/test_torch_longrange_driver.py)."""
-    cfg = _cfg(tmp_path, ensemble="muVT") if case == "muvt" else _cfg(tmp_path)
-    if case == "plugin":
-        cfg.output_plugins.append(PluginSpec("RDF", {}))
+    tests/test_torch_longrange_driver.py; muVT:
+    tests/test_torch_ensembles_driver.py)."""
+    cfg = _cfg(tmp_path)
+    cfg.output_plugins.append(PluginSpec("RDF", {}))
     with pytest.raises(NotImplementedError, match=f"ROADMAP slice {slice_}"):
         MDSimulation(cfg, dtype=torch.float64, device="cpu")
 
