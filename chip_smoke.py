@@ -35,12 +35,14 @@ Phases (each prints one line; any failure raises, so the script exits
 non-zero and never prints the result line):
   device   GPU name and power limit, torch / CUDA versions
   build    nvcc build of every kernel, seconds, ptxas registers
-  K1       LJ cell forces vs plain, 16^3 cells cut from the seed, cap 32
-           and 64, f32 (max|dF|/max|F| <= 1e-5) and f64 (<= 1e-12); also
-           on the 6^3 scenes of check_scenes (sparse cells of 0, 1 and up
-           to 16 molecules, full cells, pairs within an ulp of rc), the
-           first 4 planes of an 8-plane tensor read in place; each case's
-           ordered in-cutoff pair count equal to the plain version's
+  K1       LJ cell forces (each pair once, the half shell) vs plain,
+           16^3 cells cut from the seed, cap 32, 64 and 128 (a block one
+           cell, whose four warps add reactions to the same slots), f32
+           (max|dF|/max|F| <= 1e-5) and f64 (<= 1e-12); also on the 6^3
+           scenes of check_scenes (sparse cells of 0, 1 and up to 16
+           molecules, full cells, pairs within an ulp of rc), the first 4
+           planes of an 8-plane tensor read in place; each case's
+           unordered in-cutoff pair count equal to the plain version's
   K2       shift-merge rebin vs plain on a state drifted 12 steps,
            bit-identical, f32 and f64; every cap from 32 to 1024 in steps
            of 32 on grids with axes of 1, 2 and 3 cells (rebin_scene);
@@ -469,15 +471,16 @@ def check_scenes(cap, dtype, device):
 
 
 def check_counts(what, r_i, r_j=None, *, kernel, **kw):
-    """The ordered pairs inside the cutoff that the kernel evaluates
-    against the plain version's count, exactly; returns the count.  kw:
+    """The pairs inside the cutoff that the kernel evaluates against the
+    plain version's count, exactly (ordered pairs; unordered for K1, K8
+    and K10); returns the count.  kw:
     ops/cuda_lj.inside_pairs's (dims, cap, rc2, and cell_len or K4's
     box and options)."""
     from ls1_mardyn_tpu_torch.ops.cuda_lj import inside_pairs, inside_pairs_reference
 
     got = inside_pairs(r_i, r_j, kernel=kernel, **kw)
     want = inside_pairs_reference(r_i, r_j, kernel=kernel, **kw)
-    check(got == want, f"{what}: {got} ordered pairs inside the cutoff, "
+    check(got == want, f"{what}: {got} pairs inside the cutoff, "
                        f"the plain version {want}")
     return got
 
@@ -486,7 +489,7 @@ def phase_k1(device):
     from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces, lj_cell_forces_reference
 
     for dtype, lim in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        for cap in (32, 64):
+        for cap in (32, 64, 128):
             sim = cut_sim(cap, dtype, device)
             cases = {"seed": (sim.state.planes[:, :, :4, :], sim.spec.dims,
                               sim.cell_len, dict(eps24=sim.eps24, sig2=sim.sig2,
@@ -504,7 +507,7 @@ def phase_k1(device):
                                            cell_len=cl, rc2=lj["rc2"])
             say("K1", dtype=str(dtype).split(".")[1], cap=cap,
                 rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
-                inside_ordered=json.dumps(counts), counts_equal=True, limit=lim)
+                inside_unordered=json.dumps(counts), counts_equal=True, limit=lim)
             check(max(errs.values()) <= lim,
                   f"K1 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
     say("K1", launches=lj_cell_forces.launches)
@@ -1968,8 +1971,8 @@ def ptxas_report(name):
     ops/_build.py keeps beside the library: {"f32"|"f64"|entry: {...}};
     a warp-skeleton kernel (csrc/lj_warp.cuh) as "f32 macro vi gram"
     with its template flags, e.g. "f32 100" (u6/virial, no Vi, no Gram),
-    K8's (csrc/lj_cells_n3l.cu) and K10's (csrc/lj_packed.cu) as "f32
-    macro"."""
+    K1's and K8's (csrc/lj_cells.cu, csrc/lj_cells_n3l.cu: the half
+    shell) and K10's (csrc/lj_packed.cu) as "f32 macro"."""
     import re
 
     from ls1_mardyn_tpu_torch.ops import _build
@@ -1979,7 +1982,8 @@ def ptxas_report(name):
         if "Compiling entry function" in ln:
             ent = ln.split("'")[1]
             warp = re.search(
-                r"(?:warp_cells|n3l|packed)_kernelI([fd])((?:Lb[01]E)+)", ent)
+                r"(?:warp_cells|n3l|packed)_kernel(?:_half)?I([fd])((?:Lb[01]E)+)",
+                ent)
             if warp:
                 cur = ("f32 " if warp.group(1) == "f" else "f64 ") + "".join(
                     re.findall(r"Lb([01])E", warp.group(2))[:3])
@@ -2177,7 +2181,7 @@ def lj_warp_walk(r_i, dims, cap, cell_len, rc2, cull=True, split=True,
     totals and the means per warp with a valid i (the block skeleton
     walked 27 * cap iterations per i slot, K8's 13.5 * cap on average)."""
     from ls1_mardyn_tpu_torch.ops.cuda_lj import _cells, _local_j_cells
-    from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import FORWARD
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import FORWARD
 
     nx, ny, nz = dims
     nch = cap // 32
@@ -2295,6 +2299,23 @@ def lj_bound(r_i, dims, cap, lj, out_planes, r_j=None, nbytes=None):
             "candidates": candidates, "inside": inside}
 
 
+def lj_times(key, fn, ref, args, kw, rel_lim=1e-5):
+    """An LJ kernel fn and its plain version ref on (args, kw), without
+    and with u6/virial (CUDA events; 10 launches of the kernel, one of
+    the plain version): ({macro: (kernel ms, plain ms)}, max|dF|, the
+    largest relative error), held to rel_lim."""
+    res = {}
+    for macro in (False, True):
+        res[macro] = (
+            cuda_ms(lambda: fn(*args, compute_macro=macro, **kw), 10),
+            cuda_ms(lambda: ref(*args, compute_macro=macro, **kw), 1))
+    a, b = fn(*args, **kw), ref(*args, **kw)
+    err = float((a[0] - b[0]).abs().max())
+    rel = max(rel_errors(a, b))
+    check(rel <= rel_lim, f"{key} at its path's shape: rel err {rel}")
+    return res, err, rel
+
+
 def phase_times(sim_rmm, sim_gen, smi):
     """Each kernel beside its plain version at the shape its path gave
     it, with the kernel's bound; no single PyTorch call computes an LJ
@@ -2303,18 +2324,6 @@ def phase_times(sim_rmm, sim_gen, smi):
     from ls1_mardyn_tpu_torch.ops import cuda_lj, cuda_rebin
 
     out = {}
-
-    def lj_times(key, fn, ref, args, kw, rel_lim=1e-5):
-        res = {}
-        for macro in (False, True):
-            res[macro] = (
-                cuda_ms(lambda: fn(*args, compute_macro=macro, **kw), 10),
-                cuda_ms(lambda: ref(*args, compute_macro=macro, **kw), 1))
-        a, b = fn(*args, **kw), ref(*args, **kw)
-        err = float((a[0] - b[0]).abs().max())
-        rel = max(rel_errors(a, b))
-        check(rel <= rel_lim, f"{key} at its path's shape: rel err {rel}")
-        return res, err, rel
 
     # K1: the RMM state's planes, read in place
     rsim = sim_rmm.engine.sim
@@ -2334,10 +2343,14 @@ def phase_times(sim_rmm, sim_gen, smi):
         pair_lanes_per_s=f"{pairs / res[False][0] * 1e3:.4e}",
         max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
         bound=json.dumps(bound), gpu=repr(smi),
-        walk=json.dumps(lj_warp_walk(r4, dims, cap, rsim.cell_len, rsim.rc2)),
+        walk=json.dumps(lj_warp_walk(r4, dims, cap, rsim.cell_len, rsim.rc2,
+                                     half=True)),
+        walk_full_shell=json.dumps(lj_warp_walk(r4, dims, cap, rsim.cell_len,
+                                                rsim.rc2)),
         ptxas=json.dumps(ptxas_report("lj_cells")))
     out["K1"] = dict(max_abs_err=err, ms=res[False][0], plain_ms=res[False][1],
                      bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+    argon_times(smi)
 
     # K2: one read and one write of the 11-column stack is what the
     # function must move; its passes move about that: the hop pass reads
@@ -2435,7 +2448,7 @@ def phase_times(sim_rmm, sim_gen, smi):
             r1, cell_len=rsim.cell_len, **dict(kw1, compute_macro=True)), 10),
         K4_ms="%.3f" % cuda_ms(lambda: cuda_lj.lj_cell_forces_row(
             r1, rj1, box=rsim.spec.box, local_coords=True, **kw1), 10))
-    out.update(variant_times(rsim, r4, smi, lj_times))
+    out.update(variant_times(rsim, r4, smi))
     return out
 
 
@@ -2534,7 +2547,55 @@ def packed_warp_walk(pos4, tab, meta, nx, box, rc2):
                                        / float(kept.sum()), 4)}
 
 
-def variant_times(rsim, r4, smi, lj_times):
+def argon_rmm(seed=0):
+    """The RMM engine of the benchmark cell lj_liquid_4m.rmm at its start,
+    built by the benchmark's own scene and program code: ls1-MarDyn's
+    argon example (200 K, 18 mol/l, rc 5.154 sigma), N = 4,194,304, f32,
+    on the engine's own grid ((36,36,36) cap 128, about 90 molecules a
+    cell, so a block of K1 is one cell).  Returns (MDSimulation,
+    RMMSimulation)."""
+    from benchmark import harness, program, scene
+
+    _, _, cfg, traffic, cell = harness.find_cell("lj_liquid_4m.rmm")
+    md = program.build(cfg, traffic, cell, scene.start_state(cfg, seed), "cuda")
+    md.engine.prepare_start()
+    return md, md.engine.sim
+
+
+def argon_times(smi):
+    """K1 and K8 (one kernel body, the half shell) beside their plain
+    version on the argon state of the benchmark (argon_rmm): times
+    without and with u6/virial, the bound, and what their warps walk by
+    the half shell and, for the comparison, by the full one."""
+    from ls1_mardyn_tpu_torch.ops import cuda_lj, cuda_lj_variants as V
+
+    md, rsim = argon_rmm()
+    r4 = rsim.state.planes[:, :, :4, :]
+    dims, cap = rsim.spec.dims, rsim.spec.cap
+    kw = dict(dims=dims, cap=cap, cell_len=rsim.cell_len, eps24=rsim.eps24,
+              sig2=rsim.sig2, shift6=rsim.shift6, rc2=rsim.rc2)
+    bound = lj_bound(r4.contiguous(), dims, cap,
+                     dict(cell_len=rsim.cell_len, rc2=rsim.rc2), 3)
+    walk = dict(half=json.dumps(lj_warp_walk(r4, dims, cap, rsim.cell_len,
+                                             rsim.rc2, half=True)),
+                full=json.dumps(lj_warp_walk(r4, dims, cap, rsim.cell_len,
+                                             rsim.rc2)))
+    for key, fn, lib in (("K1", cuda_lj.lj_cell_forces, "lj_cells"),
+                         ("K8", V.lj_cell_forces_n3l, "lj_cells_n3l")):
+        res, err, rel = lj_times(key + " argon", fn,
+                                 cuda_lj.lj_cell_forces_reference, (r4,), kw)
+        say("times", kernel=key, state="argon", grid=dims, cap=cap,
+            n=int((r4[:, :, 3] > 0.5).sum()),
+            ms_fast=f"{res[False][0]:.3f}", plain_ms_fast=f"{res[False][1]:.3f}",
+            ms_macro=f"{res[True][0]:.3f}", plain_ms_macro=f"{res[True][1]:.3f}",
+            max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
+            bound=json.dumps(bound), walk_half_shell=walk["half"],
+            walk_full_shell=walk["full"], ptxas=json.dumps(ptxas_report(lib)),
+            gpu=repr(smi))
+    del md, rsim
+
+
+def variant_times(rsim, r4, smi):
     """K7-K10 beside their plain versions on the RMM state K1 was timed
     on (K1's grid; K7 with a copied i view and its x halo, K10 on the
     state packed into pencils).  They compute K1's physics, so K1's

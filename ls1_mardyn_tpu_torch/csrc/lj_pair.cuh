@@ -2,10 +2,10 @@
 // rounding helpers, the neighbour functor of the cell-local layouts
 // (LocalNbr) and the per-block reduction of u6 and the virial.  K1
 // (lj_cells.cu), K3 (lj_cells_cw.cu), K4 (lj_cells_row.cu), K7
-// (lj_cells_lanej.cu) and K9 (lj_cells_zb.cu) run on the warp skeleton
-// of lj_warp.cuh, which culls and compacts the j slots; K8
-// (lj_cells_n3l.cu) and K10 (lj_packed.cu, packed pencils) have kernels
-// of their own built from its pieces.
+// (lj_cells_lanej.cu), K8 (lj_cells_n3l.cu) and K9 (lj_cells_zb.cu) run
+// on the warp skeleton of lj_warp.cuh, which culls and compacts the j
+// slots (K1 and K8 by its half shell); K10 (lj_packed.cu, packed
+// pencils) has a kernel of its own built from its pieces.
 //
 // Rounding: r^2 is rounded exactly as in the plain PyTorch versions (no
 // FMA contraction), so kernel and plain version apply the cutoff to the

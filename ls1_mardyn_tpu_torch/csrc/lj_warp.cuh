@@ -1,21 +1,22 @@
 // Warp-level skeleton of the 1CLJ cell kernels K1 (lj_cells.cu), K3
 // (lj_cells_cw.cu), K4 (lj_cells_row.cu), K7 (lj_cells_lanej.cu), K8
 // (lj_cells_n3l.cu) and K9 (lj_cells_zb.cu): one warp owns 32 slots of
-// one i cell, stages the j slots of its 27 neighbour cells itself, keeps
+// one i cell, stages the j slots of its neighbour cells itself, keeps
 // only those that can hold a pair inside the cutoff, and walks the kept
 // slots.  The pair term, the rounding helpers, the neighbour functor of
 // the cell-local layouts (ljk::LocalNbr) and the per-block reduction of
 // u6 and the virial are lj_pair.cuh's; this header adds the neighbour
 // functor of K4's and K7's j view (RowNbr).  A kernel source picks its
 // neighbour functor (where the j slots of the cell at offset (dx, dy, dz)
-// lie, and their image shift) and adds its extern "C" entry points.  K8
-// (Newton's third law by the half shell) has a kernel of its own in
-// lj_cells_n3l.cu built from the pieces here: warp_cell, i_chunk (the i
-// compaction, the split and the bounding box) and to_slot; so has K10
-// (lj_packed.cu, the half shell on packed pencils: warp_min/warp_max and
-// gap for its box cull).  Both take the half-shell pieces at the end of
-// this header: the reactions' register rotation (rotate), the skewed
-// last round (walk_skewed) and its flush.
+// lie, and their image shift) and adds its extern "C" entry points.  K3,
+// K4, K7 and K9 walk all 27 neighbour cells and evaluate each pair from
+// both sides (warp_cells_kernel).  K1 and K8 evaluate each pair once, by
+// Newton's third law on the half shell: one kernel body, half_shell, at
+// the end of this header, under two names.  K10 (lj_packed.cu, the half
+// shell on packed pencils) has a kernel of its own built from the pieces
+// here: warp_min/warp_max and gap for its box cull, the reactions'
+// register rotation (rotate), the skewed last round (walk_skewed) and its
+// flush.
 //
 // What bounded the block skeleton this replaced (one block of 128/cap
 // cells, one thread an i slot, each neighbour cell staged in shared
@@ -95,15 +96,23 @@
 //   version is dropped.  At cell-local coordinates (S <= ~130 at
 //   cell edge 2.9) the margin is <= 5e-4 in f32 against rc^2 = 6.25.
 //
-// What bounds it now (H100, PERF.md): the walk.  On K1's main state a
-// warp walks 283 j iterations (864 before), on K3's 113; each costs ~14
-// SM cycles, about 40 instructions at the full instruction rate, and the
-// time follows the resident warps: the compiler's 56 registers (f32)
-// beat budgets of 67-86 by 12%.  The walk of a full ring must unroll
-// completely (WAYS a compile-time constant): a runtime stride or
-// `#pragma unroll 1` cost 4-20%.  Testing a ring first and running the
-// pair terms on the hits only (per-lane bit masks) was slower on both
-// states.
+// What bounds it now (H100, PERF.md): the walk.  By the full shell, on
+// the first round's dense state (cap 32) a warp walks 283 j iterations
+// (864 before), on K3's 113; each costs ~14 SM cycles, about 40
+// instructions at the full instruction rate, and the time follows the
+// resident warps: the compiler's 56 registers (f32) beat budgets of
+// 67-86 by 12%.  The walk of a full ring must unroll completely (WAYS a
+// compile-time constant): a runtime stride or `#pragma unroll 1` cost
+// 4-20%.  Testing a ring first and running the pair terms on the hits
+// only (per-lane bit masks) was slower on both states.  By the half
+// shell (K1, K8), half the j iterations at ~1.4x the cost each: on the
+// benchmark's argon state (grid (36,36,36), cap 128, ~90 molecules a
+// cell, rc 5.15) a warp walks 629 j iterations against 1,236 by the full
+// shell, and K1 takes 6.41 ms against 8.91 (2.51 against 3.08 on the
+// dense state); the reactions' three shuffles a step cost ~2% and the
+// global atomics ~1.5%, the rest is the pair term, the entries'
+// shuffles and the 62 registers (f32), eight blocks an SM against the
+// full shell's nine.
 
 #pragma once
 
@@ -464,35 +473,42 @@ __global__ void __launch_bounds__(WARPS * 32)
   if (MACRO) ljk::block_macro(acc.u6, acc.vir, part);
 }
 
-// -- Newton's third law: the half shell of K8 (lj_cells_n3l.cu) and K10
-// (lj_packed.cu).  Each pair is evaluated once, by the i side; its
-// reaction -F_ij goes to the j entry.  A ring entry's w tells the half
-// shell: an own-cell (own-pencil) entry carries its slot (lane), a
-// forward one a value above every i's, and the pair counts when j.w >
-// i.w.  Reactions travel in one of two ways, and nothing assumes that
-// the lanes of a warp run in lockstep:
+// -- Newton's third law: the half shell of K1 (lj_cells.cu), K8
+// (lj_cells_n3l.cu) and K10 (lj_packed.cu).  Each pair is evaluated once,
+// by the i side; its reaction -F_ij goes to the j entry.  A ring entry's
+// w tells the half shell: an own-cell (own-pencil) entry carries its slot
+// (lane), a forward one a value above every i's, and the pair counts
+// when j.w > i.w.  Reactions travel in one of two ways, and nothing
+// assumes that the lanes of a warp run in lockstep:
 //   * a full round of 32 entries by register rotation (rotate): each
 //     lane holds one item and three sums, meets what its lane holds
 //     fixed, and passes item and sums on to the lane below by shuffles,
-//     so no two lanes ever add to the same sum.  K8 rotates the j
-//     entries and their reactions past fixed i; K10 rotates its i and
-//     their forces past fixed j entries, because its i side carries the
-//     pencil's y/z shift (see lj_packed.cu);
-//   * the last, partial round skewed (walk_skewed): the lane of rank l
-//     takes the entry of rank (l + b) mod m at step b and adds the
-//     reaction to the entry's sums in shared memory with atomics (two
-//     lanes may take one entry when m is below the lanes); then one lane
-//     an entry adds them to f (flush).
-// Reactions and i forces reach f by global atomics (f32 and f64 are
-// native on sm_90), so the order of the sums varies from run to run.
+//     so no two lanes ever add to the same sum.  K1 and K8 rotate the j
+//     entries and their reactions past fixed i (walk_rotate); K10
+//     rotates its i and their forces past fixed j entries, because its
+//     i side carries the pencil's y/z shift (see lj_packed.cu);
+//   * the last, partial round skewed (walk_skewed_to): the lane of rank
+//     l takes the entry of rank (l + b) mod m at step b and hands the
+//     reaction to a sink that adds it atomically (two lanes may take one
+//     entry when m is below the lanes); K8 and K10 add it to the entry's
+//     sums in shared memory (walk_skewed) and then one lane an entry adds
+//     them to f (flush).
+// What becomes of a round's reactions is the caller's sink (a lambda):
+// in this form nvcc gives half_shell 62 registers in f32 and no spills;
+// written with the sums passed in directly, 64 and spills, and K1 took
+// 6.72 ms against 6.41-6.46 on the argon state (H100, PERF.md).
+// Reactions and i forces reach f by global atomics (f32 and f64 reductions are
+// native on sm_90: REDG.E.ADD), so the order of the sums varies from run
+// to run.  Shared-memory float atomics are not native (a compare-and-swap
+// loop, ATOMS.CAST.SPIN), which is why the skewed round alone uses them.
 
 // Per warp, beside the ring of staged j: the reaction sums of each entry
 // (the skewed round's) and the offset of its j slot in f (plane x; y and
-// z one plane stride W apart).
-template <typename T>
+// z one plane stride W apart), of type O.
+template <typename T, typename O = int>
 struct Reactions {
   T x[RING], y[RING], z[RING];
-  int o[RING];
+  O o[RING];
 };
 
 // (x, y, z) added to the slot at o (planes W apart), unless all are 0
@@ -505,15 +521,46 @@ __device__ __forceinline__ void add_to(T* o, long long W, T x, T y, T z) {
   }
 }
 
+// The pair of i `me` and a staged j if it lies inside the cutoff and j
+// is a later slot of the own cell or a slot of a forward cell: its terms
+// added to `a` and the force on i returned in (px, py, pz).
+template <typename T, bool MACRO>
+__device__ __forceinline__ bool half_pair(const J4<T>& me, const J4<T>& j,
+                                          const ljk::LJ<T>& lj, ljk::Acc<T>& a,
+                                          T& px, T& py, T& pz) {
+  const T ddx = me.x - j.x;
+  const T ddy = me.y - j.y;
+  const T ddz = me.z - j.z;
+  const T dr2 = ljk::norm2(ddx, ddy, ddz);
+  if (dr2 < lj.rc2 && j.w > me.w) {
+    T fac, u6;
+    ljk::lj_term(dr2, lj.eps24, lj.sig2, fac, u6);
+    px = fac * ddx;
+    py = fac * ddy;
+    pz = fac * ddz;
+    a.fx += px;
+    a.fy += py;
+    a.fz += pz;
+    if (MACRO) {
+      a.u6 += u6 + lj.shift6;
+      a.vir += fac * dr2;
+    }
+    return true;
+  }
+  return false;
+}
+
 // The last, partial round, skewed: the entries (tail + k) % RING, k < n
 // (n < 32), of the lane's half (k = h, h + WAYS, ...); the lane of rank l
 // in its half takes the entry of rank (l + b) mod m of the half's m at
 // step b.  pair(j, e, px, py, pz) evaluates the lane's i with entry j
 // (ring slot e), adds the terms on i and returns the force on i if the
-// pair counts; the reaction goes to the entry's sums by shared atomics.
-template <typename T, int WAYS, typename Pair>
-__device__ __forceinline__ void walk_skewed(const J4<T>* ring, Reactions<T>& re,
-                                            int tail, int n, const Pair& pair) {
+// pair counts; the reaction goes to sink(e, j, -px, -py, -pz), which
+// adds it atomically.
+template <typename T, int WAYS, typename Pair, typename Sink>
+__device__ __forceinline__ void walk_skewed_to(const J4<T>* ring, int tail,
+                                               int n, const Pair& pair,
+                                               const Sink& sink) {
   constexpr int S = 32 / WAYS;
   const int lane = threadIdx.x & 31, h = lane / S, l = lane & (S - 1);
   const int m = (n - h + WAYS - 1) / WAYS;
@@ -522,20 +569,31 @@ __device__ __forceinline__ void walk_skewed(const J4<T>* ring, Reactions<T>& re,
   for (int b = 0; b < S; ++b) {  // a compile-time bound: the loop unrolls
     if (b >= m) break;
     const int e = (tail + q * WAYS + h) & (RING - 1);
+    const J4<T> j = ring[e];
     T px, py, pz;
-    if (pair(ring[e], e, px, py, pz)) {
-      atomicAdd(re.x + e, -px);
-      atomicAdd(re.y + e, -py);
-      atomicAdd(re.z + e, -pz);
-    }
+    if (pair(j, e, px, py, pz)) sink(e, j, -px, -py, -pz);
     if (++q == m) q = 0;
   }
 }
 
+// walk_skewed_to with the reactions added to the entries' sums re by
+// shared atomics
+template <typename T, int WAYS, typename Pair, typename O>
+__device__ __forceinline__ void walk_skewed(const J4<T>* ring,
+                                            Reactions<T, O>& re, int tail, int n,
+                                            const Pair& pair) {
+  walk_skewed_to<T, WAYS>(ring, tail, n, pair,
+                          [&](int e, const J4<T>&, T x, T y, T z) {
+                            atomicAdd(re.x + e, x);
+                            atomicAdd(re.y + e, y);
+                            atomicAdd(re.z + e, z);
+                          });
+}
+
 // The reactions of the entries (tail + k) % RING, k < n, added to f: one
 // entry a lane.
-template <typename T>
-__device__ __forceinline__ void flush(const Reactions<T>& re, int tail, int n,
+template <typename T, typename O>
+__device__ __forceinline__ void flush(const Reactions<T, O>& re, int tail, int n,
                                       T* f, long long W) {
   const int lane = threadIdx.x & 31;
   if (lane < n) {
@@ -565,6 +623,190 @@ __device__ __forceinline__ void rotate(J4<T>& v, T& sx, T& sy, T& sz,
       sz = __shfl_sync(FULL, sz, src);
     }
   }
+}
+
+// A full round of the half shell by register rotation (rotate): the lane
+// of rank l in its half starts with the half's entry of rank l and a zero
+// reaction, meets its i at each step and passes entry and reaction to the
+// lane below; every lane of the warp takes part in the shuffles, a lane
+// without a valid i only passes them on.  Ends with sink(e, j, rx, ry,
+// rz) in every lane: the entry j it holds (ring slot e) and its reaction.
+template <typename T, bool MACRO, int WAYS, typename Sink>
+__device__ __forceinline__ void walk_rotate(const J4<T>* ring, int tail,
+                                            bool live, const J4<T>& me,
+                                            const ljk::LJ<T>& lj, ljk::Acc<T>& a,
+                                            const Sink& sink) {
+  constexpr int S = 32 / WAYS;
+  const int lane = threadIdx.x & 31, h = lane / S, l = lane & (S - 1);
+  J4<T> j = ring[(tail + l * WAYS + h) & (RING - 1)];
+  T rx = T(0), ry = T(0), rz = T(0);
+  rotate<T, S>(j, rx, ry, rz, [&](const J4<T>& jj, T& sx, T& sy, T& sz) {
+    T px, py, pz;
+    if (live && half_pair<T, MACRO>(me, jj, lj, a, px, py, pz)) {
+      sx -= px;
+      sy -= py;
+      sz -= pz;
+    }
+  });
+  sink((tail + ((l + S - 1) & (S - 1)) * WAYS + h) & (RING - 1), j, rx, ry, rz);
+}
+
+// walk_rotate of a full round, split in two halves or not
+template <typename T, bool MACRO, typename Sink>
+__device__ __forceinline__ void walk_round(int ways, const J4<T>* ring, int tail,
+                                           bool live, const J4<T>& me,
+                                           const ljk::LJ<T>& lj, ljk::Acc<T>& a,
+                                           const Sink& sink) {
+  if (ways == 2)
+    walk_rotate<T, MACRO, 2>(ring, tail, live, me, lj, a, sink);
+  else
+    walk_rotate<T, MACRO, 1>(ring, tail, live, me, lj, a, sink);
+}
+
+// The last, partial round of the half shell (walk_skewed_to), split in
+// two halves or not; the lanes with a valid i only
+template <typename T, bool MACRO, typename Sink>
+__device__ __forceinline__ void walk_last(int ways, const J4<T>* ring, int tail,
+                                          int n, const J4<T>& me,
+                                          const ljk::LJ<T>& lj, ljk::Acc<T>& a,
+                                          const Sink& sink) {
+  const auto pair = [&](const J4<T>& j, int, T& px, T& py, T& pz) {
+    return half_pair<T, MACRO>(me, j, lj, a, px, py, pz);
+  };
+  if (ways == 2)
+    walk_skewed_to<T, 2>(ring, tail, n, pair, sink);
+  else
+    walk_skewed_to<T, 1>(ring, tail, n, pair, sink);
+}
+
+// The half-shell kernel of K1 (lj_cells.cu) and K8 (lj_cells_n3l.cu), one
+// body under two names: forces on every slot of the cell-local layout
+// r[nz, ny, P, nx*cap] (nbr its neighbour functor) into f[nz, ny, 3,
+// nx*cap] (zeroed by the caller), each pair of the half shell once; u6
+// and the virial counted once per pair.  A warp stages the valid j slots
+// of the own cell above its first valid i slot and of the 13 forward
+// cells (m = 9*(dz+1) + 3*(dy+1) + (dx+1) = 13 the own cell, 14..26 the
+// forward half) that lie within rc of its i box; an own-cell entry
+// carries its slot id, a forward one 2 * cap, so half_pair's test j.w >
+// i.w keeps j > i in the own cell and every forward pair (also where
+// several warps share the own cell).  Each full round's reactions go to
+// f by global atomics from the lane that holds the entry at the round's
+// end, the last round's through the warp's shared sums (flush), the i
+// forces at the warp's end.  Every thread of the block must call it.
+template <typename T, bool MACRO>
+__device__ __forceinline__ void half_shell(const T* __restrict__ r, int P,
+                                           T* __restrict__ f, T* __restrict__ part,
+                                           const ljk::Grid& gd,
+                                           const ljk::LocalNbr<T>& nbr,
+                                           const ljk::LJ<T>& lj) {
+  __shared__ J4<T> rings[WARPS][RING];
+  __shared__ Reactions<T, long long> reacts[WARPS];
+  const int lane = threadIdx.x & 31;
+  J4<T>* ring = rings[threadIdx.x >> 5];
+  Reactions<T, long long>& re = reacts[threadIdx.x >> 5];
+  const unsigned below = (1u << lane) - 1u;
+  const int nx = gd.nx, ny = gd.ny, nz = gd.nz, cap = gd.cap;
+  const long long W = (long long)nx * cap;
+  int cx, cy, cz, ch;
+  ljk::Acc<T> acc;
+  if (warp_cell<false>(gd, cx, cy, cz, ch)) {  // warp-uniform
+    const int s = ch * 32 + lane;
+    const T* p = r + ((long long)cz * ny + cy) * P * W + (long long)cx * cap + s;
+    const bool vi = p[3 * W] > T(0.5);
+    const unsigned vmask = __ballot_sync(FULL, vi);
+    const int ni = __popc(vmask);
+    const int rank = __popc(vmask & below);
+    if (ni > 0) {  // warp-uniform
+      const IChunk<T> c = i_chunk<T, false, 1>(p, W, s, vi, vmask, ni, rank, ring);
+      const int smin = ch * 32 + c.first;  // the first valid i slot
+      // a full round's reactions: to f by global atomics
+      const auto to_f = [&](int e, const J4<T>&, T x, T y, T z) {
+        add_to(f + re.o[e], W, x, y, z);
+      };
+      int head = 0, cnt = 0;  // ring write position; staged, not walked
+      for (int m = 13; m < 27; ++m) {
+        const int dz = m / 9 - 1, dy = (m / 3) % 3 - 1, dx = m % 3 - 1;
+        const ljk::Stage<T> st = nbr(cx, cy, cz, dx, dy, dz);
+        const bool self = m == 13;
+        // offset in f of the cell's slot 0
+        const long long ob =
+            ((long long)ljk::wrap(cz + dz, nz) * ny + ljk::wrap(cy + dy, ny)) * 3 *
+                W +
+            (long long)ljk::wrap(cx + dx, nx) * cap;
+        for (int js = lane; js < cap; js += 32) {
+          const T* pj = st.p + js;
+          bool keep = pj[3 * st.stride] > T(0.5) && (!self || js > smin);
+          T x = T(0), y = T(0), z = T(0);
+          if (keep) {
+            x = ljk::add_rn(pj[0], st.shx);
+            y = ljk::add_rn(pj[st.stride], st.shy);
+            z = ljk::add_rn(pj[2 * st.stride], st.shz);
+            keep = c.boxdist2(x, y, z) < lj.rc2;
+          }
+          const unsigned km = __ballot_sync(FULL, keep);
+          if (keep) {
+            const int e = (head + __popc(km & below)) & (RING - 1);
+            ring[e] = J4<T>{x, y, z, self ? T(js) : T(2 * cap)};
+            re.x[e] = T(0);
+            re.y[e] = T(0);
+            re.z[e] = T(0);
+            re.o[e] = ob + js;
+          }
+          head += __popc(km);
+          cnt += __popc(km);
+          __syncwarp();
+          if (cnt >= 32) {
+            walk_round<T, MACRO>(c.ways, ring, head - cnt, c.live, c.me, lj, acc,
+                                 to_f);
+            cnt -= 32;
+            __syncwarp();
+          }
+        }
+      }
+      // the last round, partial
+      if (c.live)
+        walk_last<T, MACRO>(c.ways, ring, head - cnt, cnt, c.me, lj, acc,
+                            [&](int e, const J4<T>&, T x, T y, T z) {
+                              atomicAdd(re.x + e, x);
+                              atomicAdd(re.y + e, y);
+                              atomicAdd(re.z + e, z);
+                            });
+      __syncwarp();
+      flush(re, head - cnt, cnt, f, W);
+      // the i forces: other warps add reactions to the same slots
+      T* o = f + ((long long)cz * ny + cy) * 3 * W + (long long)cx * cap + s;
+      const T fx = to_slot(acc.fx, c.ways, rank, vi);
+      const T fy = to_slot(acc.fy, c.ways, rank, vi);
+      const T fz = to_slot(acc.fz, c.ways, rank, vi);
+      add_to(o, W, fx, fy, fz);
+    }
+  }
+  if (MACRO) ljk::block_macro(acc.u6, acc.vir, part, T(1));
+}
+
+// The signature of a half-shell kernel (a __global__ wrapper of
+// half_shell)
+template <typename T>
+using HalfKernel = void (*)(const T*, int, T*, T*, ljk::Grid, ljk::LocalNbr<T>,
+                            ljk::LJ<T>);
+
+// Launch a half-shell kernel (fast: without u6/virial, full: with) on
+// the planes r (P of them) on `stream`; returns the cudaError_t of the
+// launch.
+template <typename T>
+int launch_half(HalfKernel<T> fast, HalfKernel<T> full, const void* r, void* f,
+                void* part, int nx, int ny, int nz, int cap, int planes,
+                double clx, double cly, double clz, double eps24, double sig2,
+                double shift6, double rc2, int macro, void* stream) {
+  const ljk::Grid gd{nx, ny, nz, cap};
+  const ljk::LocalNbr<T> nbr{(const T*)r, nx, ny, nz, cap, planes, 0,
+                             T(clx), T(cly), T(clz)};
+  const ljk::LJ<T> lj{T(eps24), T(sig2), T(shift6), T(rc2)};
+  const unsigned blocks = (unsigned)num_blocks(nx, ny, nz, cap);
+  const HalfKernel<T> kern = macro ? full : fast;
+  kern<<<blocks, WARPS * 32, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const T*)r, planes, (T*)f, (T*)part, gd, nbr, lj);
+  return (int)cudaGetLastError();
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch.  HAS_VI and

@@ -17,14 +17,19 @@ dr = r_i - (r_j + off*cell_len) for the neighbour cell at offset off in
 CUDA tensor launches the kernel (built at first use) or raises.
 
 K1, K3 and K4 run on the warp skeleton of csrc/lj_warp.cuh (a warp owns
-32 slots of an i cell and walks only the j slots of its 27 neighbour
-cells that are valid and within the cutoff of its i slots' bounding
-box).  The launch_* functions are the launches behind the wrappers, on
+32 slots of an i cell and walks only the j slots of its neighbour cells
+that are valid and within the cutoff of its i slots' bounding box).  K3
+and K4 walk all 27 neighbour cells and evaluate each pair from both
+sides.  K1 evaluates each pair once, by Newton's third law (the half
+shell: the own cell with j > i and the 13 forward cells), as the TPU
+kernel does, and adds the reaction to j by atomics: its wrapper zeroes
+f, and the order of the sums, so the last bits of f, varies from run to
+run.  The launch_* functions are the launches behind the wrappers, on
 checked inputs; they raise for a CPU tensor unless the library was
 built for the CPU (tools/cuda_emu.py).  inside_pairs counts the pairs
 inside the cutoff that K1, K3, K4, K7, K8, K9 or K10 evaluates (a launch
-with eps24 = 0 and shift6 = 1; ordered pairs, unordered for K8 and K10),
-exactly, for the kernels' bound and its check against the plain
+with eps24 = 0 and shift6 = 1; ordered pairs, unordered for K1, K8 and
+K10), exactly, for the kernels' bound and its check against the plain
 version's count.
 """
 
@@ -149,20 +154,64 @@ def _local_j_cells(pos_j, val_j, cell_len, nz, z_halo):
     return j_cells
 
 
+# the 13 forward neighbour offsets (dz, dy, dx) of the half shell: dz > 0,
+# or dz = 0 and dy > 0, or dz = dy = 0 and dx = +1
+FORWARD = tuple(o for o in itertools.product((-1, 0, 1), repeat=3)
+                if o > (0, 0, 0))
+
+
 def lj_cell_forces_reference(
-    r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2, compute_macro=True
+    r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2, compute_macro=True,
+    count=False
 ):
-    """Plain PyTorch version of K1: for each of the 27 neighbour-cell
-    offsets, gather the neighbour cells with a periodic roll and
-    evaluate all cap x cap slot pairs.  Double-sided; u6 and the virial
-    are halved per pair.  Returns (f [nz,ny,3,nx*cap], u6, vir)."""
+    """Plain PyTorch version of K1 (and of K8, which walks the same half
+    shell): the own cell with j > i and the 13 forward neighbour cells,
+    gathered with a periodic roll, all cap x cap slot pairs of each; each
+    pair inside the cutoff once, its force added to the i slot and
+    subtracted from the j slot with index_add_.  u6 and the virial are
+    not halved.  Returns (f [nz,ny,3,nx*cap], u6, vir), or with `count`
+    the number of (unordered) pairs inside the cutoff (an int)."""
     nx, ny, nz = dims
+    dtype, dev = r4.dtype, r4.device
     pos, val = _cells(r4, nx, cap)
-    f, _, u6, vir = _reference(
-        pos, val, _local_j_cells(pos, val, cell_len, nz, False), cap=cap,
-        eps24=eps24, sig2=sig2, shift6=shift6, rc2=rc2,
-        compute_macro=compute_macro)
-    return _planes_out(f, nx, cap), u6, vir
+    j_cells = _local_j_cells(pos, val, cell_len, nz, False)
+    f = torch.zeros((nz * ny * nx * cap, 3), dtype=dtype, device=dev)
+    u6 = torch.zeros((), dtype=dtype, device=dev)
+    vir = torch.zeros((), dtype=dtype, device=dev)
+    upper = torch.triu(torch.ones((cap, cap), dtype=torch.bool, device=dev), 1)
+    zc = max(1, min(nz, _REF_CHUNK // (ny * nx * cap * cap)))
+    n_inside = 0
+    for z0 in range(0, nz, zc):
+        z1 = min(nz, z0 + zc)
+        pi, vi = pos[z0:z1], val[z0:z1]
+        for off in ((0, 0, 0),) + FORWARD:
+            dz, dy, dx = off
+            pj, vj = j_cells(z0, z1, off)
+            dr = pi[..., :, None, :] - pj[..., None, :, :]
+            # rounded as the CUDA kernels round it: same cutoff decisions
+            dr2 = dr[..., 0] * dr[..., 0] + dr[..., 1] * dr[..., 1] \
+                + dr[..., 2] * dr[..., 2]
+            m = vi[..., :, None] & vj[..., None, :] & (dr2 < rc2)
+            if off == (0, 0, 0):
+                m = m & upper
+            if count:
+                n_inside += int(m.sum())
+                continue
+            z, y, x, si, sj = m.nonzero(as_tuple=True)
+            drm = dr[z, y, x, si, sj]
+            fp, u6p = potentials.lj(drm, dr2[z, y, x, si, sj], eps24, sig2)
+            zi = z + z0
+            ii = ((zi * ny + y) * nx + x) * cap + si
+            jj = ((torch.remainder(zi + dz, nz) * ny + torch.remainder(y + dy, ny))
+                  * nx + torch.remainder(x + dx, nx)) * cap + sj
+            f.index_add_(0, ii, fp)
+            f.index_add_(0, jj, -fp)
+            if compute_macro:
+                u6 += (u6p + shift6).sum()
+                vir += (fp * drm).sum()
+    if count:
+        return n_inside
+    return _planes_out(f.reshape(nz, ny, nx, cap, 3), nx, cap), u6, vir
 
 
 def _check(r4, shape, cap, what="lj_cell_forces"):
@@ -251,6 +300,9 @@ def lj_cell_forces(
     """K1 wrapper.  r4 [nz, ny, 4, nx*cap] (may be the first 4 planes of
     the RMM state's 8-plane tensor).  Returns (f [nz,ny,3,nx*cap], u6,
     vir); u6 and vir are 0-d tensors, zero when compute_macro=False.
+    Each pair inside the cutoff is evaluated once (the half shell) and
+    its reaction added to j by atomics: f agrees with the plain version
+    to rounding, and the order of its sums varies from run to run.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel (built at first use) or raises."""
@@ -275,7 +327,8 @@ lj_cell_forces.launches = 0
 def launch_lj_cells(r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2,
                     compute_macro=True, parts=False):
     """The launch of csrc/lj_cells.cu behind lj_cell_forces, on checked
-    inputs: (f, u6, vir), or (f, part) with `parts`."""
+    inputs (f zeroed first: the kernel adds into it): (f, u6, vir), or
+    (f, part) with `parts`."""
     nx, ny, nz = dims
     P = _planes(r4, nx * cap)
     return _launch(
@@ -284,7 +337,7 @@ def launch_lj_cells(r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2,
             r4.data_ptr(), f.data_ptr(), part.data_ptr(), nx, ny, nz, cap, P,
             *(float(c) for c in cell_len), float(eps24), float(sig2),
             float(shift6), float(rc2), int(bool(compute_macro))),
-        compute_macro, parts=parts)
+        compute_macro, zero=True, parts=parts)
 
 
 # -- K3: cell-window kernel ---------------------------------------------------
@@ -379,7 +432,7 @@ def pairs_from_part(part, halved=True):
     shift6 = 1: a block's u6 is its count, halved where the kernel sees
     each pair from both sides (the ordered count is then twice it; exact
     in f32 below 2^24 pairs a block), and the blocks are summed in f64.
-    halved=False: K8, each pair once, its unordered count."""
+    halved=False: K1, K8 and K10, each pair once, their unordered count."""
     total = float(part[:, 0].sum(dtype=torch.float64))
     return int(round(2.0 * total if halved else total))
 
@@ -388,12 +441,13 @@ def inside_pairs_reference(r_i, r_j=None, *, dims=None, cap=None, rc2,
                            cell_len=None, z_halo=False, kernel="K3", **row):
     """Pairs inside the cutoff that the plain version of a kernel
     evaluates on these inputs, counted from its masks: ordered pairs of
-    K3 (K1's and K9's with r_j None), K4 (kernel="row", r_j its j view,
+    K3 (K9's with r_j None), K4 (kernel="row", r_j its j view,
     `row` its box, hx, local_coords and y_halo), K7 (kernel="lanej": K4's
     in local mode with one x halo cell, `row` its box) or K9's Gram form
-    (kernel="zb_gram", whose r^2 is the Gram one); unordered pairs of K8
-    (kernel="n3l", r_j None) and of K10 (kernel="packed": r_i its pos4,
-    `row` its tab, meta, nx, ny, nz, Wp and box)."""
+    (kernel="zb_gram", whose r^2 is the Gram one); unordered pairs of K1
+    and K8 (kernel="K1" or "n3l", r_j None; one plain version) and of K10
+    (kernel="packed": r_i its pos4, `row` its tab, meta, nx, ny, nz, Wp
+    and box)."""
     if kernel == "packed":
         from ls1_mardyn_tpu_torch.ops.cuda_packed import lj_forces_packed_reference
 
@@ -401,11 +455,8 @@ def inside_pairs_reference(r_i, r_j=None, *, dims=None, cap=None, rc2,
             r_i, row.pop("tab"), row.pop("meta"), eps24=0.0, sig2=0.0,
             shift6=0.0, rc2=rc2, compute_macro=False, count=True, **row)
     nx, ny, nz = dims
-    if kernel == "n3l":
-        from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import (
-            lj_cell_forces_n3l_reference)
-
-        return lj_cell_forces_n3l_reference(
+    if kernel in ("K1", "n3l"):
+        return lj_cell_forces_reference(
             r_i, dims=dims, cap=cap, cell_len=cell_len, eps24=0.0, sig2=0.0,
             shift6=0.0, rc2=rc2, compute_macro=False, count=True)
     pos_i, val_i = _cells(r_i, nx, cap)
@@ -428,7 +479,7 @@ def inside_pairs_reference(r_i, r_j=None, *, dims=None, cap=None, rc2,
 def inside_pairs(r_i, r_j=None, *, kernel="K3", **kw):
     """Pairs inside the cutoff that a kernel evaluates on these inputs:
     its launch with eps24 = 0 and shift6 = 1, counted by pairs_from_part
-    (ordered pairs; unordered for K8 and K10).  kernel: "K3" (r_j,
+    (ordered pairs; unordered for K1, K8 and K10).  kernel: "K3" (r_j,
     z_halo), "K1" (r_j None), "row" (K4: r_j its j view, and its box, hx,
     local_coords, z_halo, y_halo), "lanej" (K7: r_j its j view, and its
     box), "n3l" (K8, r_j None), "zb" or "zb_gram" (K9 plain or Gram, r_j
@@ -452,6 +503,7 @@ def inside_pairs(r_i, r_j=None, *, kernel="K3", **kw):
 
     if kernel == "K1":
         _, part = launch_lj_cells(r_i, **kw)
+        return pairs_from_part(part, halved=False)
     elif kernel in ("zb", "zb_gram"):
         _, part = V.launch_lj_cells_zb(r_i, gram=kernel == "zb_gram", **kw)
     elif kernel == "n3l":

@@ -13,13 +13,14 @@ Layouts are ops/cuda_lj.py's (cell-local coordinates, cap slots per cell
 along the last axis).  K8 and K9 read the RMM state's planes in place;
 K7 takes the i planes and a j view with one x halo cell per side, as
 the TPU kernel and K4 do.  Energies: K7 and K9 evaluate each pair from
-both sides and halve u6 and the virial, K8 evaluates each pair once.  A
-wrapper takes the plain version only for a CPU tensor; a CUDA tensor
-launches the kernel (built at first use) or raises.  All three run on
-the warp skeleton of K1 (csrc/lj_warp.cuh), which takes any cap the
-wrappers take: K7 with K4's neighbour functor, K8 by the half shell
-with its reactions passed through the lanes by shuffles and added to j
-by atomics.  launch_lj_cells_lanej,
+both sides and halve u6 and the virial, K8 evaluates each pair once, as
+K1 does.  A wrapper takes the plain version only for a CPU tensor; a
+CUDA tensor launches the kernel (built at first use) or raises.  All
+three run on the warp skeleton of csrc/lj_warp.cuh, which takes any cap
+the wrappers take: K7 with K4's neighbour functor, K8 by K1's half
+shell with each warp's reactions passed through the lanes by shuffles
+and added to j by global atomics: K1's kernel under its own name.
+launch_lj_cells_lanej,
 launch_lj_cells_n3l and launch_lj_cells_zb are their launches on
 checked inputs.
 """
@@ -30,7 +31,6 @@ import itertools
 
 import torch
 
-from ls1_mardyn_tpu_torch.models import potentials
 from ls1_mardyn_tpu_torch.ops.cuda_lj import (
     _REF_CHUNK,
     _cells,
@@ -41,6 +41,7 @@ from ls1_mardyn_tpu_torch.ops.cuda_lj import (
     _planes_out,
     _reference,
     _row_units,
+    lj_cell_forces_reference,
     lj_cell_forces_row_reference,
 )
 
@@ -109,61 +110,9 @@ def launch_lj_cells_lanej(r_i, r_j, *, dims, cap, box, eps24, sig2, shift6,
 
 # -- K8: Newton's third law, the half shell --------------------------------------
 
-# the 13 forward neighbour offsets (dz, dy, dx): dz > 0, or dz = 0 and
-# dy > 0, or dz = dy = 0 and dx = +1
-FORWARD = tuple(o for o in itertools.product((-1, 0, 1), repeat=3)
-                if o > (0, 0, 0))
-
-
-def lj_cell_forces_n3l_reference(
-    r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2, compute_macro=True,
-    count=False
-):
-    """Plain PyTorch version of K8: the own cell with j > i and the 13
-    forward neighbour cells, each pair inside the cutoff once; the pair
-    force is added to the i slot and subtracted from the j slot with
-    index_add_.  u6 and the virial are not halved.  With `count`, the
-    number of (unordered) pairs inside the cutoff (an int)."""
-    nx, ny, nz = dims
-    dtype, dev = r4.dtype, r4.device
-    pos, val = _cells(r4, nx, cap)
-    j_cells = _local_j_cells(pos, val, cell_len, nz, False)
-    f = torch.zeros((nz * ny * nx * cap, 3), dtype=dtype, device=dev)
-    u6 = torch.zeros((), dtype=dtype, device=dev)
-    vir = torch.zeros((), dtype=dtype, device=dev)
-    upper = torch.triu(torch.ones((cap, cap), dtype=torch.bool, device=dev), 1)
-    zc = max(1, min(nz, _REF_CHUNK // (ny * nx * cap * cap)))
-    n_inside = 0
-    for z0 in range(0, nz, zc):
-        z1 = min(nz, z0 + zc)
-        pi, vi = pos[z0:z1], val[z0:z1]
-        for off in ((0, 0, 0),) + FORWARD:
-            dz, dy, dx = off
-            pj, vj = j_cells(z0, z1, off)
-            dr = pi[..., :, None, :] - pj[..., None, :, :]
-            dr2 = dr[..., 0] * dr[..., 0] + dr[..., 1] * dr[..., 1] \
-                + dr[..., 2] * dr[..., 2]
-            m = vi[..., :, None] & vj[..., None, :] & (dr2 < rc2)
-            if off == (0, 0, 0):
-                m = m & upper
-            if count:
-                n_inside += int(m.sum())
-                continue
-            z, y, x, si, sj = m.nonzero(as_tuple=True)
-            drm = dr[z, y, x, si, sj]
-            fp, u6p = potentials.lj(drm, dr2[z, y, x, si, sj], eps24, sig2)
-            zi = z + z0
-            ii = ((zi * ny + y) * nx + x) * cap + si
-            jj = ((torch.remainder(zi + dz, nz) * ny + torch.remainder(y + dy, ny))
-                  * nx + torch.remainder(x + dx, nx)) * cap + sj
-            f.index_add_(0, ii, fp)
-            f.index_add_(0, jj, -fp)
-            if compute_macro:
-                u6 += (u6p + shift6).sum()
-                vir += (fp * drm).sum()
-    if count:
-        return n_inside
-    return _planes_out(f.reshape(nz, ny, nx, cap, 3), nx, cap), u6, vir
+# K8 is K1's kernel (csrc/lj_warp.cuh's half_shell) under the name of the
+# TPU's half-shell variant: one plain version serves both
+lj_cell_forces_n3l_reference = lj_cell_forces_reference
 
 
 def lj_cell_forces_n3l(
@@ -183,9 +132,6 @@ def lj_cell_forces_n3l(
         raise ValueError(f"{what}: dims {dims} need >= 3 cells per axis")
     if min(cell_len) ** 2 < rc2:
         raise ValueError(f"{what}: cell edge {min(cell_len)} < cutoff")
-    if nz * ny * 3 * nx * cap >= 2 ** 31:
-        raise ValueError(f"{what}: {nz * ny * 3 * nx * cap} force elements "
-                         "(the kernel indexes them with int, < 2^31)")
     kw = dict(dims=dims, cap=cap, cell_len=cell_len, eps24=eps24, sig2=sig2,
               shift6=shift6, rc2=rc2, compute_macro=compute_macro)
     if r4.device.type == "cpu":
@@ -279,8 +225,9 @@ def lj_cell_forces_zb_reference(
     r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2, compute_macro=True,
     gram=False
 ):
-    """Plain PyTorch version of K9 (see lj_cell_forces_zb): K1's pair sum,
-    or with `gram` the Gram form of r^2 and of the force."""
+    """Plain PyTorch version of K9 (see lj_cell_forces_zb): the
+    double-sided pair sum of K3 (_reference), or with `gram` the Gram form
+    of r^2 and of the force."""
     nx, ny, nz = dims
     pos, val = _cells(r4, nx, cap)
     j_cells = _local_j_cells(pos, val, cell_len, nz, False)

@@ -9,8 +9,9 @@ its own cell's origin, so f32 keeps ~1e-7 absolute precision whatever
 the box size, and periodicity is exact integer cell arithmetic.
 
 Per step: Kahan-compensated leapfrog, forces through kernel K1
-(ops/cuda_lj.py), global values and the global velocity-scaling
-thermostat.  Every `rebin_every` steps the nearest-neighbour
+(ops/cuda_lj.py: each pair once by the half shell, the reactions added
+to j by atomics, so the last bits of the forces vary from run to run),
+global values and the global velocity-scaling thermostat.  Every `rebin_every` steps the nearest-neighbour
 shift-merge rebin, kernel K2 (ops/cuda_rebin.py), re-packs the cells;
 when it overflows (a cell full, or a molecule hopped more than one
 cell) the global-sort rebin `_rebin` runs on the same state.
@@ -18,13 +19,15 @@ cell) the global-sort rebin `_rebin` runs on the same state.
 Kernel switches, the JAX package's, public attributes set on the
 simulation object (for MDSimulation: `md.engine.sim`), read at every
 force evaluation, with the JAX precedence:
-  cw and cwn3l          K1  lj_cell_forces (the default)
+  cw and cwn3l          K1  lj_cell_forces (the default; the half shell)
   cw, cwn3l = False     K3  lj_cell_forces_cw
   cw = False, then      K7  lj_cell_forces_lanej (lanej, lanej_defer)
-                        K8  lj_cell_forces_n3l (n3l)
+                        K8  lj_cell_forces_n3l (n3l; a traversal of its
+                            own in the JAX package, K1's kernel here)
                         K9  lj_cell_forces_zb (zb, zb_gram)
   none of these         K4  lj_cell_forces_row, cell-local mode
-All give the same forces, u6 and virial to rounding.  The JAX package's
+All give the same forces, u6 and virial to rounding; K3, K4, K7 and K9
+evaluate each pair from both sides, K1 and K8 once.  The JAX package's
 cwn3l opt-ins (cw_gsub, cw_pack, cw_skip, cw_prefix) and its reciprocal
 switches (fast_recip, recip_newton) are TPU experiments and not ported.
 """

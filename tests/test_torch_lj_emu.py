@@ -16,15 +16,23 @@ images count) and K1 reading the first 4 planes of an 8-plane tensor in
 place; for K4 its j view in every mode of chip_smoke.row_views (cell-
 local, absolute, explicit y and z halo rows, two x halo cells, nx = 2)
 and pairs within a coordinate ulp of rc in absolute coordinates near
-160 sigma.  Tolerance: 1e-12 of max|F| and relative on u6 and the
-virial in f64, 1e-5 in f32.  Every case also holds the number of
-ordered pairs inside the cutoff that the kernel evaluates (a launch
-with eps24 = 0 and shift6 = 1, ops/cuda_lj.pairs_from_part) to the
-plain version's count (inside_pairs_reference), exactly: a j slot
-culled wrongly would lose its pairs there.  Scenes: chip_smoke.lj_scene,
-cell edge 2.6, rc 2.5.
+160 sigma.  K1 evaluates each pair once by the half shell and sends
+each warp's reactions to f by atomics: cap 32, 64 and 96 (blocks across
+cells) and cap 128 (a block is one cell, whose warps add reactions to
+the same slots), with cells of up to 110 molecules.  Tolerance: 1e-12 of
+max|F| and relative on u6 and the virial in f64, 1e-5 in f32.  Every
+case also holds the number of pairs inside the cutoff that the kernel
+evaluates (a launch with eps24 = 0 and shift6 = 1,
+ops/cuda_lj.pairs_from_part; ordered for K3 and K4, unordered for K1)
+to the plain version's count (inside_pairs_reference), exactly: a j
+slot culled wrongly would lose its pairs there.  Two mutants of K1 must
+be caught: the own-cell test j > i turned into j != i (pairs twice),
+and the flush of the last, partial round of j slots dropped (reactions
+lost).  The shim runs a warp's lanes as fibers that switch only at
+barriers, so it cannot show a race between lanes; K1 adds its reactions
+with atomics or through shuffles and assumes no lockstep.  Scenes:
+chip_smoke.lj_scene, cell edge 2.6 (5.0 at cap 128), rc 2.5.
 """
-
 import ctypes
 import importlib.util
 import shutil
@@ -88,9 +96,10 @@ def assert_close(got, want, lim):
         assert abs(float(a) - float(b)) <= lim * abs(float(b)), (float(a), float(b))
 
 
-def check_kernel(launch, plain, args, kw, lim, count_kw=None):
+def check_kernel(launch, plain, args, kw, lim, count_kw=None, halved=True):
     """The kernel with and without u6/virial against its plain version,
-    and its in-cutoff pair count against the plain version's."""
+    and its in-cutoff pair count against the plain version's (ordered;
+    halved=False: a kernel that evaluates each pair once, unordered)."""
     want = plain(*args, **kw)
     assert_close(launch(*args, **kw), want, lim)
     f, _, _ = launch(*args, **dict(kw, compute_macro=False))
@@ -99,8 +108,19 @@ def check_kernel(launch, plain, args, kw, lim, count_kw=None):
     _, part = launch(*args, **dict(kw, eps24=0.0, sig2=0.0, shift6=1.0),
                      parts=True)
     ref = cuda_lj.inside_pairs_reference(*args[:1], **count_kw)
-    assert cuda_lj.pairs_from_part(part) == ref > 0
+    assert cuda_lj.pairs_from_part(part, halved=halved) == ref > 0
 
+
+def block_counts(shape, seed=4):
+    """Cap 128 on cells of edge CL128: cells of 0 to 110 molecules in
+    random slots, so that a cell's four warps hold 0 to 32 valid slots
+    each (none, split, whole), and several cells have all four live."""
+    rng = np.random.default_rng(seed)
+    return rng.choice([0, 1, 12, 40, 70, 97, 104, 110], size=shape)
+
+
+# the cell edge of the cap-128 scene: room for 110 molecules 0.75 apart
+CL128 = 5.0
 
 SCENES = {
     # name: (dims, cap, counts(shape) , near_rc pairs)
@@ -108,31 +128,47 @@ SCENES = {
     "sparse64": ((4, 3, 3), 64, lambda s: sparse_counts(s, 40, 2), 0),
     "full32": ((3, 3, 3), 32, lambda s: np.full(s, 32), 0),
     "near_rc": ((4, 4, 3), 32, lambda s: sparse_counts(s, 3, 3), 80),
+    "cap96": ((4, 3, 3), 96, lambda s: np.random.default_rng(4).choice(
+        [0, 1, 17, 32], s), 0),
+    "block128": ((3, 3, 3), 128, block_counts, 60),
+    "small128": ((3, 3, 3), 128, lambda s: np.random.default_rng(5).choice(
+        [0, 1, 12, 40], s), 30),
 }
+
+
+def edge(name):
+    return CL128 if SCENES[name][1] == 128 else CL
 
 
 def scene(name, dtype=torch.float64, planes=4):
     dims, cap, counts, near = SCENES[name]
-    r = chip_smoke.lj_scene(dims, cap, CL, counts(dims[::-1]), seed=7,
+    r = chip_smoke.lj_scene(dims, cap, edge(name), counts(dims[::-1]), seed=7,
                             near_rc=near, planes=planes, dtype=dtype)
     return r, dims, cap
 
 
 @pytest.mark.parametrize("case", ["sparse32", "sparse64", "full32", "near_rc",
-                                  "f32", "planes8"])
+                                  "f32", "planes8", "cap96", "block128",
+                                  "small128_f32"])
 def test_k1_device_code_matches_plain(on_emu, case):
     """K1 against its plain version: sparse cells (the split paths), cap
-    64, full cells, pairs within an ulp of rc, f32, and the first 4
-    planes of an 8-plane tensor read in place."""
-    name = case if case in SCENES else "sparse32"
-    dtype = torch.float32 if case == "f32" else torch.float64
+    64, full cells, pairs within an ulp of rc, f32, the first 4 planes of
+    an 8-plane tensor read in place, cap 96 (blocks across cells), and
+    cap 128, where a block is one cell: cells of up to 110 molecules (all
+    four warps live) in f64, and of up to 40 with pairs within an ulp of
+    rc in f32."""
+    name = case.removesuffix("_f32") if case.removesuffix("_f32") in SCENES \
+        else "sparse32"
+    dtype = torch.float32 if case.endswith("f32") else torch.float64
     r, dims, cap = scene(name, dtype, planes=8 if case == "planes8" else 4)
     r4 = r[:, :, :4, :]
     assert r4.is_contiguous() == (case != "planes8")
-    kw = dict(dims=dims, cap=cap, cell_len=(CL,) * 3, **LJ)
+    cl = (edge(name),) * 3
+    kw = dict(dims=dims, cap=cap, cell_len=cl, **LJ)
     check_kernel(cuda_lj.launch_lj_cells, cuda_lj.lj_cell_forces_reference,
-                 (r4,), kw, 1e-5 if case == "f32" else 1e-12,
-                 dict(dims=dims, cap=cap, cell_len=(CL,) * 3, rc2=LJ["rc2"]))
+                 (r4,), kw, 1e-5 if dtype == torch.float32 else 1e-12,
+                 dict(kernel="K1", dims=dims, cap=cap, cell_len=cl,
+                      rc2=LJ["rc2"]), halved=False)
 
 
 @pytest.mark.parametrize("case", ["sparse32", "sparse64", "full32", "near_rc",
@@ -209,3 +245,68 @@ def test_cpu_tensor_only_for_a_library_built_for_the_cpu(emu_libs):
     assert _build.stream_of(emu_libs["lj_cells"], t, "lj_cells") is None
     with pytest.raises(ValueError, match="built for the card"):
         _build.stream_of(types.SimpleNamespace(), t, "lj_cells")
+
+
+def _own_cell_neq(text):
+    """The half shell's pair test j > i (lj_warp.cuh's half_pair) turned
+    into j != i."""
+    old = "if (dr2 < lj.rc2 && j.w > me.w) {"
+    assert text.count(old) == 1
+    return text.replace(old, "if (dr2 < lj.rc2 && j.w != me.w) {")
+
+
+def _no_last_flush(text):
+    """The flush of the last, partial round (lj_warp.cuh's half_shell)
+    dropped."""
+    old = "      flush(re, head - cnt, cnt, f, W);\n"
+    assert text.count(old) == 1
+    return text.replace(old, "")
+
+
+@pytest.fixture(scope="module")
+def emu_k1_mutants(tmp_path_factory):
+    """csrc/lj_cells.cu built for the CPU with each of its two mutants
+    (skips without g++)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is absent: the kernels cannot be built for the CPU")
+    spec = importlib.util.spec_from_file_location(
+        "cuda_emu", ROOT / "tools" / "cuda_emu.py")
+    emu = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(emu)
+    libs = {}
+    for tag, edit in (("own_neq", _own_cell_neq), ("no_flush", _no_last_flush)):
+        path = emu.build(["lj_cells"], tmp_path_factory.mktemp(tag),
+                         edits={"lj_warp.cuh": edit})["lj_cells"]
+        libs[tag] = cuda_lj.type_lib(ctypes.CDLL(str(path)), "lj_cells")
+    return libs
+
+
+def test_k1_mutants_caught(emu_libs, emu_k1_mutants, monkeypatch):
+    """The own-cell test j != i adds own-cell pairs twice: the count of a
+    case with three or more close molecules in a cell differs.  Without
+    the last flush the reactions of the last round are lost: the forces
+    differ.  The shipped kernel passes both checks on the same cases
+    (cap 32, and cap 128 where a block is one cell)."""
+    libs = dict(emu_k1_mutants, tree=emu_libs["lj_cells"])
+    caught = {"own_neq": set(), "no_flush": set()}
+    for case in ("sparse32", "small128"):
+        r4, dims, cap = scene(case)
+        cl = (edge(case),) * 3
+        kw = dict(dims=dims, cap=cap, cell_len=cl, **LJ)
+        want = cuda_lj.lj_cell_forces_reference(r4, compute_macro=False, **kw)[0]
+        n_want = cuda_lj.inside_pairs_reference(r4, kernel="K1", dims=dims,
+                                                cap=cap, cell_len=cl,
+                                                rc2=LJ["rc2"])
+        scale = float(want.abs().max())
+        for tag in ("tree", "own_neq", "no_flush"):
+            monkeypatch.setattr(cuda_lj, "_lib", lambda name, lib=libs[tag]: lib)
+            f, _, _ = cuda_lj.launch_lj_cells(r4, compute_macro=False, **kw)
+            _, part = cuda_lj.launch_lj_cells(
+                r4, parts=True, **dict(kw, eps24=0.0, sig2=0.0, shift6=1.0))
+            bad = (cuda_lj.pairs_from_part(part, halved=False) != n_want
+                   or float((f - want).abs().max()) > 1e-12 * scale)
+            if tag == "tree":
+                assert not bad, case
+            elif bad:
+                caught[tag].add(case)
+    assert caught["own_neq"] and caught["no_flush"], caught

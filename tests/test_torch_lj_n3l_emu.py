@@ -51,14 +51,16 @@ CASES = ["sparse32", "sparse64", "full32", "near_rc", "near_rc_f32",
 
 
 def _own_cell_neq(text):
-    """The half shell's pair test j > i turned into j != i."""
+    """The half shell's pair test j > i (lj_warp.cuh's half_pair) turned
+    into j != i."""
     old = "if (dr2 < lj.rc2 && j.w > me.w) {"
     assert text.count(old) == 1
     return text.replace(old, "if (dr2 < lj.rc2 && j.w != me.w) {")
 
 
 def _no_last_flush(text):
-    """The flush of the last, partial round dropped."""
+    """The flush of the last, partial round (lj_warp.cuh's half_shell,
+    the kernel body K8 shares with K1) dropped."""
     old = "      flush(re, head - cnt, cnt, f, W);\n"
     assert text.count(old) == 1
     return text.replace(old, "")
@@ -77,7 +79,7 @@ def emu_n3l(tmp_path_factory):
     libs = {}
     for tag, edit in (("tree", None), ("own_neq", _own_cell_neq),
                       ("no_flush", _no_last_flush)):
-        edits = {"lj_cells_n3l.cu": edit} if edit else None
+        edits = {"lj_warp.cuh": edit} if edit else None
         path = emu.build(["lj_cells_n3l"], tmp_path_factory.mktemp(tag),
                          edits=edits)["lj_cells_n3l"]
         libs[tag] = cuda_lj.type_lib(ctypes.CDLL(str(path)), "lj_cells_n3l")
