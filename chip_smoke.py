@@ -1724,7 +1724,7 @@ def phase_general(device, smi):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    lj_cell_forces_cw.launches = 0
+    lj_cell_forces_cw.launches = lj_cell_forces_cw.half_launches = 0
     lj_cell_forces_row.launches = 0
     sim = make_sim(2, device, force_mode="pallas")
     eng = sim.engine
@@ -1741,6 +1741,10 @@ def phase_general(device, smi):
     check(sim.engine is eng, "general path: cell capacity overflow (re-spec)")
     check(k3 == 1 + warm + win and lj_cell_forces_row.launches == 0,
           f"general path: K3 launched {k3} times in {warm + win} steps")
+    # on a grid of >= 3 cells an axis every launch takes the half shell
+    check(lj_cell_forces_cw.half_launches == k3,
+          f"general path: {lj_cell_forces_cw.half_launches} of {k3} K3 "
+          "launches on the half shell")
     say("general", n=int(float(gv.n)), grid=path.spec.dims, cap=path.spec.cap,
         T=f"{T:.6f}", p=f"{p:.6f}", upot_per_mol=f"{U / N_MAIN:.6f}",
         construct_s=round(t_build, 2), warm_ms_per_step=f"{ms0:.3f}",
@@ -1965,20 +1969,21 @@ def plain_once_ms(fn):
     return t0.elapsed_time(t1), res
 
 
-def ptxas_report(name):
+def ptxas_report(name, log=None):
     """Registers, spills and static shared memory of each kernel of
     csrc/<name>.cu, read from the ptxas report (nvcc -Xptxas -v) that
-    ops/_build.py keeps beside the library: {"f32"|"f64"|entry: {...}};
-    a warp-skeleton kernel (csrc/lj_warp.cuh) as "f32 macro vi gram"
-    with its template flags, e.g. "f32 100" (u6/virial, no Vi, no Gram),
-    K1's and K8's (csrc/lj_cells.cu, csrc/lj_cells_n3l.cu: the half
-    shell) and K10's (csrc/lj_packed.cu) as "f32 macro"."""
+    ops/_build.py keeps beside the library (or from `log`, such a
+    report): {"f32"|"f64"|entry: {...}}; a warp-skeleton kernel
+    (csrc/lj_warp.cuh) as "f32 macro vi gram" with its template flags,
+    e.g. "f32 100" (u6/virial, no Vi, no Gram), the half shell's (K1's,
+    also K3's half-shell branch, and K8's, in csrc/lj_cells.cu and
+    lj_cells_n3l.cu) and K10's (csrc/lj_packed.cu) as "f32 macro"."""
     import re
 
     from ls1_mardyn_tpu_torch.ops import _build
 
     out, cur = {}, None
-    for ln in _build.build_log(name).splitlines():
+    for ln in (_build.build_log(name) if log is None else log).splitlines():
         if "Compiling entry function" in ln:
             ent = ln.split("'")[1]
             warp = re.search(
@@ -2562,11 +2567,29 @@ def argon_rmm(seed=0):
     return md, md.engine.sim
 
 
+def argon_general(seed=0):
+    """The general engine of the benchmark cell lj_liquid_4m.general at its
+    start, built by the benchmark's own scene and program code: the argon
+    state of argon_rmm on the general path's own grid ((41,41,41) cap
+    128, about 61 molecules a cell).  Returns (MDSimulation, CudaLJPath,
+    r_i: the path's layout of the start, K3's input)."""
+    from benchmark import harness, program, scene
+
+    _, _, cfg, traffic, cell = harness.find_cell("lj_liquid_4m.general")
+    md = program.build(cfg, traffic, cell, scene.start_state(cfg, seed), "cuda")
+    path = md.engine._force_fn
+    r_i, _ = path.layout(md.engine.mol)
+    return md, path, r_i
+
+
 def argon_times(smi):
     """K1 and K8 (one kernel body, the half shell) beside their plain
     version on the argon state of the benchmark (argon_rmm): times
     without and with u6/virial, the bound, and what their warps walk by
-    the half shell and, for the comparison, by the full one."""
+    the half shell and, for the comparison, by the full one.  Then K3
+    on the general cell's own grid of the same state (argon_general,
+    the half shell): held to its plain version with and without
+    u6/virial, its in-cutoff count checked, timed."""
     from ls1_mardyn_tpu_torch.ops import cuda_lj, cuda_lj_variants as V
 
     md, rsim = argon_rmm()
@@ -2593,6 +2616,30 @@ def argon_times(smi):
             walk_full_shell=walk["full"], ptxas=json.dumps(ptxas_report(lib)),
             gpu=repr(smi))
     del md, rsim
+
+    md, path, r_i = argon_general()
+    dims, cap = path.spec.dims, path.spec.cap
+    kw = dict(dims=dims, cap=cap, cell_len=path.spec.cell_len, eps24=path.eps24,
+              sig2=path.sig2, shift6=path.shift6, rc2=path.rc2)
+    check(cuda_lj.cw_half_shell(None, dims), f"K3 argon: {dims} not on the half shell")
+    res, err, rel = lj_times("K3 argon", cuda_lj.lj_cell_forces_cw,
+                             cuda_lj.lj_cell_forces_cw_reference, (r_i,), kw)
+    a = cuda_lj.lj_cell_forces_cw(r_i, **dict(kw, compute_macro=False))[0]
+    b = cuda_lj.lj_cell_forces_cw_reference(r_i, **dict(kw, compute_macro=False))[0]
+    rel_fast = float((a - b).abs().max() / b.abs().max())
+    check(rel_fast <= 1e-5, f"K3 argon without u6/virial: rel err {rel_fast}")
+    inside = check_counts(f"K3 argon on {dims}", r_i, kernel="K3", dims=dims,
+                          cap=cap, cell_len=path.spec.cell_len, rc2=path.rc2)
+    say("times", kernel="K3", state="argon", grid=dims, cap=cap,
+        n=int((r_i[:, :, 3] > 0.5).sum()), half_shell=True,
+        ms_fast=f"{res[False][0]:.3f}", plain_ms_fast=f"{res[False][1]:.3f}",
+        ms_macro=f"{res[True][0]:.3f}", plain_ms_macro=f"{res[True][1]:.3f}",
+        max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
+        rel_err_fast=f"{rel_fast:.3e}", inside_ordered_K3_and_plain=inside,
+        walk_half_shell=json.dumps(lj_warp_walk(r_i, dims, cap, path.spec.cell_len,
+                                                path.rc2, half=True)),
+        gpu=repr(smi))
+    del md, path, r_i
 
 
 def variant_times(rsim, r4, smi):

@@ -16,7 +16,8 @@
 // as the TPU kernel does: a cell meets its own slots with j > i and the
 // 13 forward neighbour cells (dz > 0, or dz = 0 and dy > 0, or dz = dy =
 // 0 and dx = +1), and the reaction -F_ij goes to the j slot.  u6 and the
-// virial are counted once per pair (not halved).  Needs nx, ny, nz >= 3.
+// virial are counted once per pair (not halved), one row of part a warp.
+// Needs nx, ny, nz >= 3.
 //
 // The kernel is lj_warp.cuh's half_shell, on the warp skeleton: a warp
 // owns a 32-slot i chunk (i compaction, the half-warp split for n_i <=
@@ -31,7 +32,8 @@
 // warp's end.  f is zeroed by the wrapper, and the order of the sums
 // varies from run to run: f agrees with the plain version to rounding
 // and is not bitwise reproducible.  K8 (lj_cells_n3l.cu, the RMM
-// engine's switch n3l) is the same kernel under its own name.
+// engine's switch n3l) is the same kernel under its own name, and K3's
+// wrapper launches this kernel where it takes the half shell.
 //
 // Measured and dropped (H100, PERF.md): summing the reactions of a
 // cell's warps per block in shared memory where a block is one cell (cap
@@ -53,7 +55,7 @@
 // one.  The reactions' three shuffles a step cost ~2% and the global
 // atomics ~1.5% (measured without them); the rest is the pair term with
 // its reaction, the entries' shuffles, and eight resident blocks an SM
-// (62 registers, f32) against the full shell's nine (56).
+// (61 registers, f32) against the full shell's nine (56).
 //
 // Rounding: r^2 is formed without FMA from r_i - (r_j + shift), as the
 // plain version (lj_cell_forces_reference, the half shell) forms it, so
@@ -87,8 +89,9 @@ int launch(const void* r, void* f, void* part, int nx, int ny, int nz, int cap,
 
 extern "C" {
 
+// rows of part: one a warp (ljw::half_parts)
 int lj_cells_num_blocks(int nx, int ny, int nz, int cap) {
-  return ljw::num_blocks(nx, ny, nz, cap);
+  return (int)ljw::half_parts(nx, ny, nz, cap);
 }
 
 int lj_cells_f32(const void* r, void* f, void* part, int nx, int ny, int nz,

@@ -1,11 +1,26 @@
 // LJ-12-6 cell-window forces on the cell-local layout, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel ls1_mardyn_tpu/ops/pallas_lj.py:
-// lj_cell_forces_pallas_cw (body _lj_cw_kernel): double-sided 1CLJ forces
-// of every slot of r_i[nz, ny, Pi, nx*cap] (planes x, y, z, valid in
-// cell-local coordinates) against the 27 neighbour cells of a j source
-// r_j[nzj, ny, Pj, nx*cap], plus u6 (6*U incl. shift6) and the virial,
-// both halved per pair.  What it adds to lj_cells.cu's contract:
+// lj_cell_forces_pallas_cw (body _lj_cw_kernel): 1CLJ forces of every
+// slot of r_i[nz, ny, Pi, nx*cap] (planes x, y, z, valid in cell-local
+// coordinates) against the 27 neighbour cells of a j source
+// r_j[nzj, ny, Pj, nx*cap], plus u6 (6*U incl. shift6) and the virial.
+// Two branches, chosen by the wrapper (ops/cuda_lj.py: cw_half_shell)
+// from the inputs alone:
+//   * the half shell: where the j source is r_i itself, with no z halo,
+//     every axis at least 3 cells and no per-slot virial, each pair
+//     inside the cutoff is evaluated once, by Newton's third law: the
+//     wrapper launches K1's kernel (lj_cells.cu, lj_warp.cuh's
+//     half_shell), which takes exactly these inputs.  The reaction goes
+//     to j by atomics (f zeroed by the wrapper, its last bits vary from
+//     run to run); u6 and the virial are counted once per pair;
+//   * the double-sided walk, this file's kernel: every other call, each
+//     pair evaluated from both sides, u6 and the virial halved per pair;
+//     deterministic.  An explicit j source or z halo rows keep it (no
+//     reaction may land on a halo row), as do ny or nz of 1 or 2 (two
+//     offsets reach one row, and both count) and Vi (planes 3-5 hold
+//     per-slot virials).
+// What the double-sided walk adds to lj_cells.cu's contract:
 //   * VI: three more output planes with the per-slot per-axis virial
 //     0.5 * sum_j f_a * dr_a (FullMolecule::Vi);
 //   * z_halo: the j source carries two explicit z halo rows (nzj = nz+2);

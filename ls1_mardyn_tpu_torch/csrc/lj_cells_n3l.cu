@@ -91,8 +91,9 @@ int launch(const void* r, void* f, void* part, int nx, int ny, int nz, int cap,
 
 extern "C" {
 
+// rows of part: one a warp (ljw::half_parts)
 int lj_cells_n3l_num_blocks(int nx, int ny, int nz, int cap) {
-  return ljw::num_blocks(nx, ny, nz, cap);
+  return (int)ljw::half_parts(nx, ny, nz, cap);
 }
 
 int lj_cells_n3l_f32(const void* r, void* f, void* part, int nx, int ny, int nz,

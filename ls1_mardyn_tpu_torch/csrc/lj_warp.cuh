@@ -8,15 +8,18 @@
 // u6 and the virial are lj_pair.cuh's; this header adds the neighbour
 // functor of K4's and K7's j view (RowNbr).  A kernel source picks its
 // neighbour functor (where the j slots of the cell at offset (dx, dy, dz)
-// lie, and their image shift) and adds its extern "C" entry points.  K3,
-// K4, K7 and K9 walk all 27 neighbour cells and evaluate each pair from
-// both sides (warp_cells_kernel).  K1 and K8 evaluate each pair once, by
-// Newton's third law on the half shell: one kernel body, half_shell, at
-// the end of this header, under two names.  K10 (lj_packed.cu, the half
-// shell on packed pencils) has a kernel of its own built from the pieces
-// here: warp_min/warp_max and gap for its box cull, the reactions'
-// register rotation (rotate), the skewed last round (walk_skewed) and its
-// flush.
+// lie, and their image shift) and adds its extern "C" entry points.  K4,
+// K7 and K9 walk all 27 neighbour cells and evaluate each pair from both
+// sides (warp_cells_kernel), as K3 does where its inputs rule out the
+// half shell.  K1 and K8 evaluate each pair once, by Newton's third law
+// on the half shell: one kernel body, half_shell, at the end of this
+// header, under two names; K3's wrapper launches K1's where its j source
+// is its own layout, with no halo rows, three cells or more an axis and
+// no Vi.  K10
+// (lj_packed.cu, the half shell on packed pencils) has a kernel of its
+// own built from the pieces here: warp_min/warp_max and gap for its box
+// cull, the reactions' register rotation (rotate), the skewed last round
+// (walk_skewed) and its flush.
 //
 // What bounded the block skeleton this replaced (one block of 128/cap
 // cells, one thread an i slot, each neighbour cell staged in shared
@@ -111,8 +114,11 @@
 // shell, and K1 takes 6.41 ms against 8.91 (2.51 against 3.08 on the
 // dense state); the reactions' three shuffles a step cost ~2% and the
 // global atomics ~1.5%, the rest is the pair term, the entries'
-// shuffles and the 62 registers (f32), eight blocks an SM against the
-// full shell's nine.
+// shuffles and the 61 registers (f32), eight blocks an SM against the
+// full shell's nine.  On the general path's grid of the same state
+// ((41,41,41), cap 128, ~61 a cell) K3's half shell walks 519 j
+// iterations a warp against 1,016 and takes 6.05-6.07 ms (6.60 with u6
+// and the virial) where the full shell takes 8.32-8.34 (11.79).
 
 #pragma once
 
@@ -494,7 +500,7 @@ __global__ void __launch_bounds__(WARPS * 32)
 //     sums in shared memory (walk_skewed) and then one lane an entry adds
 //     them to f (flush).
 // What becomes of a round's reactions is the caller's sink (a lambda):
-// in this form nvcc gives half_shell 62 registers in f32 and no spills;
+// in this form nvcc gives half_shell 61 registers in f32 and no spills;
 // written with the sums passed in directly, 64 and spills, and K1 took
 // 6.72 ms against 6.41-6.46 on the argon state (H100, PERF.md).
 // Reactions and i forces reach f by global atomics (f32 and f64 reductions are
@@ -679,8 +685,29 @@ __device__ __forceinline__ void walk_last(int ways, const J4<T>* ring, int tail,
     walk_skewed_to<T, 1>(ring, tail, n, pair, sink);
 }
 
-// The half-shell kernel of K1 (lj_cells.cu) and K8 (lj_cells_n3l.cu), one
-// body under two names: forces on every slot of the cell-local layout
+// The sums of u6 and the virial over the warp into its row of part, the
+// warp's index in the launch (lane 0 writes it).  Called inside the
+// warp's own branch: no block barrier.
+template <typename T>
+__device__ __forceinline__ void warp_parts(T u6, T vir, T* __restrict__ part) {
+  u6 = ljk::warp_sum(u6);
+  vir = ljk::warp_sum(vir);
+  if ((threadIdx.x & 31) == 0) {
+    const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+    part[2 * row] = u6;
+    part[2 * row + 1] = vir;
+  }
+}
+
+// Rows of the part[., 2] buffer of a half-shell launch: one a warp of
+// the grid (num_blocks * WARPS less the warps past the grid).
+inline long long half_parts(int nx, int ny, int nz, int cap) {
+  return (long long)nx * ny * nz * (cap / 32);
+}
+
+// The half-shell kernel of K1 (lj_cells.cu, also K3's half-shell branch)
+// and K8 (lj_cells_n3l.cu), one body under two names: forces on every
+// slot of the cell-local layout
 // r[nz, ny, P, nx*cap] (nbr its neighbour functor) into f[nz, ny, 3,
 // nx*cap] (zeroed by the caller), each pair of the half shell once; u6
 // and the virial counted once per pair.  A warp stages the valid j slots
@@ -692,7 +719,14 @@ __device__ __forceinline__ void walk_last(int ways, const J4<T>* ring, int tail,
 // several warps share the own cell).  Each full round's reactions go to
 // f by global atomics from the lane that holds the entry at the round's
 // end, the last round's through the warp's shared sums (flush), the i
-// forces at the warp's end.  Every thread of the block must call it.
+// forces at the warp's end from the lane that holds each i to its slot
+// (me.w).  With MACRO each warp writes its sums of u6 and the virial to
+// its own row of part (half_parts rows), inside its own branch: a block
+// reduction after the branch (block_macro, with its barrier) made nvcc
+// guard every shuffle of the walk with a divergence check (BRA.DIV) and
+// give the u6/virial instantiation 72 registers and spills, 8.40-8.49
+// ms against 6.40-6.47 without u6/virial on the argon state; now 64
+// registers, no spills and 7.07-7.10 ms (H100, PERF.md).
 template <typename T, bool MACRO>
 __device__ __forceinline__ void half_shell(const T* __restrict__ r, int P,
                                            T* __restrict__ f, T* __restrict__ part,
@@ -708,16 +742,16 @@ __device__ __forceinline__ void half_shell(const T* __restrict__ r, int P,
   const int nx = gd.nx, ny = gd.ny, nz = gd.nz, cap = gd.cap;
   const long long W = (long long)nx * cap;
   int cx, cy, cz, ch;
-  ljk::Acc<T> acc;
   if (warp_cell<false>(gd, cx, cy, cz, ch)) {  // warp-uniform
     const int s = ch * 32 + lane;
     const T* p = r + ((long long)cz * ny + cy) * P * W + (long long)cx * cap + s;
     const bool vi = p[3 * W] > T(0.5);
     const unsigned vmask = __ballot_sync(FULL, vi);
     const int ni = __popc(vmask);
-    const int rank = __popc(vmask & below);
     if (ni > 0) {  // warp-uniform
-      const IChunk<T> c = i_chunk<T, false, 1>(p, W, s, vi, vmask, ni, rank, ring);
+      const IChunk<T> c =
+          i_chunk<T, false, 1>(p, W, s, vi, vmask, ni, __popc(vmask & below), ring);
+      ljk::Acc<T> acc;
       const int smin = ch * 32 + c.first;  // the first valid i slot
       // a full round's reactions: to f by global atomics
       const auto to_f = [&](int e, const J4<T>&, T x, T y, T z) {
@@ -773,15 +807,22 @@ __device__ __forceinline__ void half_shell(const T* __restrict__ r, int P,
                             });
       __syncwarp();
       flush(re, head - cnt, cnt, f, W);
-      // the i forces: other warps add reactions to the same slots
-      T* o = f + ((long long)cz * ny + cy) * 3 * W + (long long)cx * cap + s;
-      const T fx = to_slot(acc.fx, c.ways, rank, vi);
-      const T fy = to_slot(acc.fy, c.ways, rank, vi);
-      const T fz = to_slot(acc.fz, c.ways, rank, vi);
-      add_to(o, W, fx, fy, fz);
+      // the i forces, from the lane that holds each i straight to its
+      // slot (me.w): other warps add reactions to the same slots
+      if (c.ways == 2) {
+        acc.fx += __shfl_xor_sync(FULL, acc.fx, 16);
+        acc.fy += __shfl_xor_sync(FULL, acc.fy, 16);
+        acc.fz += __shfl_xor_sync(FULL, acc.fz, 16);
+      }
+      if (c.live && lane < 32 / c.ways)
+        add_to(f + ((long long)cz * ny + cy) * 3 * W + (long long)cx * cap +
+                   (int)c.me.w,
+               W, acc.fx, acc.fy, acc.fz);
+      if (MACRO) warp_parts(acc.u6, acc.vir, part);
+    } else if (MACRO) {
+      warp_parts(T(0), T(0), part);
     }
   }
-  if (MACRO) ljk::block_macro(acc.u6, acc.vir, part, T(1));
 }
 
 // The signature of a half-shell kernel (a __global__ wrapper of

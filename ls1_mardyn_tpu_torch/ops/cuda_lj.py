@@ -18,19 +18,22 @@ CUDA tensor launches the kernel (built at first use) or raises.
 
 K1, K3 and K4 run on the warp skeleton of csrc/lj_warp.cuh (a warp owns
 32 slots of an i cell and walks only the j slots of its neighbour cells
-that are valid and within the cutoff of its i slots' bounding box).  K3
-and K4 walk all 27 neighbour cells and evaluate each pair from both
-sides.  K1 evaluates each pair once, by Newton's third law (the half
-shell: the own cell with j > i and the 13 forward cells), as the TPU
-kernel does, and adds the reaction to j by atomics: its wrapper zeroes
-f, and the order of the sums, so the last bits of f, varies from run to
-run.  The launch_* functions are the launches behind the wrappers, on
-checked inputs; they raise for a CPU tensor unless the library was
-built for the CPU (tools/cuda_emu.py).  inside_pairs counts the pairs
-inside the cutoff that K1, K3, K4, K7, K8, K9 or K10 evaluates (a launch
-with eps24 = 0 and shift6 = 1; ordered pairs, unordered for K1, K8 and
-K10), exactly, for the kernels' bound and its check against the plain
-version's count.
+that are valid and within the cutoff of its i slots' bounding box).  K1
+evaluates each pair once, by Newton's third law (the half shell: the own
+cell with j > i and the 13 forward cells), as the TPU kernel does, and
+adds the reaction to j by atomics: its wrapper zeroes f, and the order
+of the sums, so the last bits of f, varies from run to run.  K3 takes
+the same half shell (K1's launch) wherever its inputs allow it
+(cw_half_shell: the j source is r_i itself, no z halo, every axis >= 3
+cells, no Vi); every other K3 call, and K4, walk all 27 neighbour cells
+and evaluate each pair from both sides.  The launch_* functions are the
+launches behind the wrappers, on checked inputs; they raise for a CPU
+tensor unless the library was built for the CPU (tools/cuda_emu.py).
+inside_pairs counts the pairs inside the cutoff that K1, K3, K4, K7,
+K8, K9 or K10 evaluates (a launch with eps24 = 0 and shift6 = 1;
+ordered pairs, unordered for K1, K8 and K10; K3's half shell counts
+each pair once and reports twice that), exactly, for the kernels' bound
+and its check against the plain version's count.
 """
 
 from __future__ import annotations
@@ -274,9 +277,10 @@ def _launch(name, r4, out_planes, dims, cap, args, compute_macro, zero=False,
             parts=False):
     """Allocate outputs (zeroed with `zero`, for kernels that add into
     them), launch csrc/<name>.cu on PyTorch's current stream, check the
-    status; returns (f, u6, vir), or (f, part) with `parts` (the
-    per-block sums part[block] = (u6, vir)).  `args(f, part)` gives the
-    entry point's arguments before the stream."""
+    status; returns (f, u6, vir), or (f, part) with `parts` (the partial
+    sums part[row] = (u6, vir); <name>_num_blocks gives the rows: one a
+    block, or one a warp for the half-shell kernels).  `args(f, part)`
+    gives the entry point's arguments before the stream."""
     nx, ny, nz = dims
     lib = _lib(name)
     f = (torch.zeros if zero else torch.empty)(
@@ -342,11 +346,25 @@ def launch_lj_cells(r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2,
 
 # -- K3: cell-window kernel ---------------------------------------------------
 
+def cw_half_shell(r_j, dims, z_halo=False, compute_vi=False):
+    """Whether K3 takes the half shell on these inputs: the j source is
+    r_i itself (r_j None), no z halo, every axis >= 3 cells (so no two
+    offsets reach one row) and no per-slot virial.  Every other call
+    walks the double-sided 27-cell window."""
+    return r_j is None and not z_halo and min(dims) >= 3 and not compute_vi
+
+
 def lj_cell_forces_cw_reference(
     r_i, r_j=None, *, dims, cap, cell_len, eps24, sig2, shift6, rc2,
     z_halo=False, compute_macro=True, compute_vi=False
 ):
-    """Plain PyTorch version of K3 (see lj_cell_forces_cw)."""
+    """Plain PyTorch version of K3 (see lj_cell_forces_cw): K1's plain
+    version where K3 takes the half shell (cw_half_shell), so that both
+    evaluate each pair from the same side and round it alike."""
+    if cw_half_shell(r_j, dims, z_halo, compute_vi):
+        return lj_cell_forces_reference(
+            r_i, dims=dims, cap=cap, cell_len=cell_len, eps24=eps24, sig2=sig2,
+            shift6=shift6, rc2=rc2, compute_macro=compute_macro)
     nx, ny, nz = dims
     pos_i, val_i = _cells(r_i, nx, cap)
     pos_j, val_j = (pos_i, val_i) if r_j is None else _cells(r_j, nx, cap)
@@ -364,11 +382,16 @@ def lj_cell_forces_cw(
     r_i, r_j=None, *, dims, cap, cell_len, eps24, sig2, shift6, rc2,
     z_halo=False, compute_macro=True, compute_vi=False
 ):
-    """K3 wrapper: double-sided 1CLJ forces in cell-local coordinates
-    over the 27 neighbour cells (9 (dz,dy) rows x the cell's own
-    x window), on any grid with nx >= 3 and a cell edge >= rc; ny and nz
-    may be 1 or 2, where two offsets reach the same row through
-    different periodic images and both count.
+    """K3 wrapper: 1CLJ forces in cell-local coordinates over the 27
+    neighbour cells (9 (dz,dy) rows x the cell's own x window), on any
+    grid with nx >= 3 and a cell edge >= rc; ny and nz may be 1 or 2,
+    where two offsets reach the same row through different periodic
+    images and both count.  Where cw_half_shell holds, each pair inside
+    the cutoff is evaluated once (K1's half shell, the reaction added to
+    j by atomics: f agrees with the plain version to rounding and the
+    order of its sums varies from run to run), and the call counts on
+    `half_launches` too; every other call evaluates each pair from both
+    sides (deterministic).
 
     r_i [nz, ny, 4, nx*cap]; r_j is the j source, r_i itself when None.
     With z_halo it is [nz+2, ny, 4, nx*cap] and carries one explicit z
@@ -402,17 +425,26 @@ def lj_cell_forces_cw(
         raise ValueError(f"{what}: device {r_i.device}")
     out = launch_lj_cells_cw(r_i, r_j, **kw)
     lj_cell_forces_cw.launches += 1
+    lj_cell_forces_cw.half_launches += cw_half_shell(r_j, dims, z_halo,
+                                                     compute_vi)
     return out
 
 
 lj_cell_forces_cw.launches = 0
+lj_cell_forces_cw.half_launches = 0
 
 
 def launch_lj_cells_cw(r_i, r_j=None, *, dims, cap, cell_len, eps24, sig2,
                        shift6, rc2, z_halo=False, compute_macro=True,
                        compute_vi=False, parts=False):
     """The launch of csrc/lj_cells_cw.cu behind lj_cell_forces_cw, on
-    checked inputs: (f, u6, vir), or (f, part) with `parts`."""
+    checked inputs: (f, u6, vir), or (f, part) with `parts`.  Where
+    cw_half_shell holds, K1's launch (launch_lj_cells: the same inputs,
+    the half shell)."""
+    if cw_half_shell(r_j, dims, z_halo, compute_vi):
+        return launch_lj_cells(
+            r_i, dims=dims, cap=cap, cell_len=cell_len, eps24=eps24, sig2=sig2,
+            shift6=shift6, rc2=rc2, compute_macro=compute_macro, parts=parts)
     nx, ny, nz = dims
     src = r_i if r_j is None else r_j
     Pi, Pj = _planes(r_i, nx * cap), _planes(src, nx * cap)
@@ -429,21 +461,26 @@ def launch_lj_cells_cw(r_i, r_j=None, *, dims, cap, cell_len, eps24, sig2,
 
 def pairs_from_part(part, halved=True):
     """Pairs inside the cutoff counted by a launch with eps24 = 0 and
-    shift6 = 1: a block's u6 is its count, halved where the kernel sees
+    shift6 = 1: a row's u6 is its count, halved where the kernel sees
     each pair from both sides (the ordered count is then twice it; exact
-    in f32 below 2^24 pairs a block), and the blocks are summed in f64.
-    halved=False: K1, K8 and K10, each pair once, their unordered count."""
+    in f32 below 2^24 pairs a row), and the rows are summed in f64.
+    halved=False: K1, K8 and K10, each pair once, their unordered count.
+    K3's half shell counts each pair once too: twice its count is the
+    ordered count of K3's half-shell plain version."""
     total = float(part[:, 0].sum(dtype=torch.float64))
     return int(round(2.0 * total if halved else total))
 
 
 def inside_pairs_reference(r_i, r_j=None, *, dims=None, cap=None, rc2,
-                           cell_len=None, z_halo=False, kernel="K3", **row):
+                           cell_len=None, z_halo=False, compute_vi=False,
+                           kernel="K3", **row):
     """Pairs inside the cutoff that the plain version of a kernel
     evaluates on these inputs, counted from its masks: ordered pairs of
-    K3 (K9's with r_j None), K4 (kernel="row", r_j its j view,
-    `row` its box, hx, local_coords and y_halo), K7 (kernel="lanej": K4's
-    in local mode with one x halo cell, `row` its box) or K9's Gram form
+    K3 (r_j, z_halo, compute_vi: twice the unordered count where
+    cw_half_shell holds; K9's with r_j None), K4 (kernel="row", r_j its
+    j view, `row` its box, hx, local_coords and y_halo), K7
+    (kernel="lanej": K4's in local mode with one x halo cell, `row` its
+    box) or K9's Gram form
     (kernel="zb_gram", whose r^2 is the Gram one); unordered pairs of K1
     and K8 (kernel="K1" or "n3l", r_j None; one plain version) and of K10
     (kernel="packed": r_i its pos4, `row` its tab, meta, nx, ny, nz, Wp
@@ -455,10 +492,13 @@ def inside_pairs_reference(r_i, r_j=None, *, dims=None, cap=None, rc2,
             r_i, row.pop("tab"), row.pop("meta"), eps24=0.0, sig2=0.0,
             shift6=0.0, rc2=rc2, compute_macro=False, count=True, **row)
     nx, ny, nz = dims
-    if kernel in ("K1", "n3l"):
-        return lj_cell_forces_reference(
+    half = kernel in ("K1", "n3l") or (
+        kernel == "K3" and cw_half_shell(r_j, dims, z_halo, compute_vi))
+    if half:
+        n = lj_cell_forces_reference(
             r_i, dims=dims, cap=cap, cell_len=cell_len, eps24=0.0, sig2=0.0,
             shift6=0.0, rc2=rc2, compute_macro=False, count=True)
+        return n if kernel != "K3" else 2 * n
     pos_i, val_i = _cells(r_i, nx, cap)
     kw = dict(cap=cap, eps24=0.0, sig2=0.0, shift6=0.0, rc2=rc2,
               compute_macro=False, count=True)
@@ -480,12 +520,12 @@ def inside_pairs(r_i, r_j=None, *, kernel="K3", **kw):
     """Pairs inside the cutoff that a kernel evaluates on these inputs:
     its launch with eps24 = 0 and shift6 = 1, counted by pairs_from_part
     (ordered pairs; unordered for K1, K8 and K10).  kernel: "K3" (r_j,
-    z_halo), "K1" (r_j None), "row" (K4: r_j its j view, and its box, hx,
-    local_coords, z_halo, y_halo), "lanej" (K7: r_j its j view, and its
-    box), "n3l" (K8, r_j None), "zb" or "zb_gram" (K9 plain or Gram, r_j
-    None), "packed" (K10: r_i its pos4; kw its tab, meta, nx, ny, nz, Wp,
-    box and rc2); kw: dims, cap, rc2 and cell_len (all but K4, K7 and
-    K10), and the kernel's options.  A CPU tensor counts the plain
+    z_halo, compute_vi), "K1" (r_j None), "row" (K4: r_j its j view, and
+    its box, hx, local_coords, z_halo, y_halo), "lanej" (K7: r_j its j
+    view, and its box), "n3l" (K8, r_j None), "zb" or "zb_gram" (K9
+    plain or Gram, r_j None), "packed" (K10: r_i its pos4; kw its tab,
+    meta, nx, ny, nz, Wp, box and rc2); kw: dims, cap, rc2 and cell_len
+    (all but K4, K7 and K10), and the kernel's options.  A CPU tensor counts the plain
     version's pairs (inside_pairs_reference)."""
     if r_i.device.type == "cpu":
         return inside_pairs_reference(r_i, r_j, kernel=kernel, **kw)

@@ -13,8 +13,11 @@ full-warp path (32 of 32), a cell of cap 64 as two warps, the box
 culling of j slots (pairs within an ulp of rc), the ring of staged j
 slots, Vi, explicit z halo rows, ny = 2 with nz = 1 (both periodic
 images count) and K1 reading the first 4 planes of an 8-plane tensor in
-place; for K4 its j view in every mode of chip_smoke.row_views (cell-
-local, absolute, explicit y and z halo rows, two x halo cells, nx = 2)
+place; K3's two branches (the half shell where its inputs allow it, on
+grids of 3x3x3 and 4x5x6 cells at cap 32 and 128, and the double-sided
+walk under Vi, z halo rows and ny = 2) and its launch counters; for K4
+its j view in every mode of chip_smoke.row_views (cell-local,
+absolute, explicit y and z halo rows, two x halo cells, nx = 2)
 and pairs within a coordinate ulp of rc in absolute coordinates near
 160 sigma.  K1 evaluates each pair once by the half shell and sends
 each warp's reactions to f by atomics: cap 32, 64 and 96 (blocks across
@@ -48,7 +51,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from ls1_mardyn_tpu_torch.ops import _build, cuda_lj  # noqa: E402
+from ls1_mardyn_tpu_torch.io.generators import cubic_grid  # noqa: E402
+from ls1_mardyn_tpu_torch.ops import _build, cuda_lj, lj_path  # noqa: E402
+from ls1_mardyn_tpu_torch.ops.cells import CellGridSpec  # noqa: E402
+from ls1_mardyn_tpu_torch.scene import build_scene  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -133,6 +139,8 @@ SCENES = {
     "block128": ((3, 3, 3), 128, block_counts, 60),
     "small128": ((3, 3, 3), 128, lambda s: np.random.default_rng(5).choice(
         [0, 1, 12, 40], s), 30),
+    "grid456": ((4, 5, 6), 32, lambda s: sparse_counts(s, 30, 6), 40),
+    "grid456_128": ((4, 5, 6), 128, lambda s: block_counts(s, seed=8), 60),
 }
 
 
@@ -171,15 +179,27 @@ def test_k1_device_code_matches_plain(on_emu, case):
                       rc2=LJ["rc2"]), halved=False)
 
 
+# K3 cases that keep the double-sided walk
+K3_FULL = ("vi", "vi_near_rc", "z_halo", "ny2")
+
+
 @pytest.mark.parametrize("case", ["sparse32", "sparse64", "full32", "near_rc",
-                                  "vi", "z_halo", "ny2"])
+                                  "block128", "grid456", "grid456_128",
+                                  *K3_FULL])
 def test_k3_device_code_matches_plain(on_emu, case):
-    """K3 against its plain version: the K1 scenes, Vi, the inner z rows
-    against the whole scene as explicit halo rows, and (5, 2, 1)."""
-    name = case if case in SCENES else "sparse32"
+    """K3 against its plain version.  The half shell (cw_half_shell): the
+    K1 scenes, (3, 3, 3) and (4, 5, 6) at cap 32 (full32, grid456) and
+    cap 128 (block128, grid456_128: partly filled cells, own cells of up
+    to four live warps); each such call writes one row of part a warp.
+    The double-sided walk: Vi (also on the near_rc scene, whose ordered
+    count differs from twice the half shell's), the inner z rows against
+    the whole scene as explicit halo rows, and (5, 2, 1); one row a
+    block.  The in-cutoff count follows the branch taken."""
+    name = {"vi_near_rc": "near_rc"}.get(case, case)
+    name = name if name in SCENES else "sparse32"
     r, dims, cap = scene(name)
     r_i, r_j, extra = r, None, {}
-    if case == "vi":
+    if case in ("vi", "vi_near_rc"):
         extra = dict(compute_vi=True)
     elif case == "z_halo":
         r_i, r_j = r[1:-1].contiguous(), r
@@ -188,11 +208,19 @@ def test_k3_device_code_matches_plain(on_emu, case):
     elif case == "ny2":
         dims = (5, 2, 1)
         r_i = r[:1, :2].contiguous()
-    kw = dict(dims=dims, cap=cap, cell_len=(CL,) * 3, **LJ, **extra)
-    count_kw = dict(dims=dims, cap=cap, cell_len=(CL,) * 3, rc2=LJ["rc2"],
-                    r_j=r_j, z_halo=bool(extra.get("z_halo")))
+    cl = (edge(name),) * 3
+    kw = dict(dims=dims, cap=cap, cell_len=cl, **LJ, **extra)
+    count_kw = dict(dims=dims, cap=cap, cell_len=cl, rc2=LJ["rc2"], r_j=r_j,
+                    **extra)
+    half = cuda_lj.cw_half_shell(r_j, dims, **extra)
+    assert half == (case not in K3_FULL)
     check_kernel(cuda_lj.launch_lj_cells_cw, cuda_lj.lj_cell_forces_cw_reference,
                  (r_i, r_j), kw, 1e-12, count_kw)
+    _, part = cuda_lj.launch_lj_cells_cw(r_i, r_j, parts=True, **kw)
+    nx, ny, nz = dims
+    warps = nx * ny * nz * cap // 32
+    rows = warps if half else -(-warps // 4)
+    assert part.shape == (rows, 2)
 
 
 @pytest.mark.parametrize("case", ["sparse32", "full32"])
@@ -235,6 +263,61 @@ def test_k4_device_code_matches_plain(on_emu, case):
                  (r_i, r_j), kw, lim,
                  dict(r_j=r_j, kernel="row", dims=dims, cap=cap, box=box,
                       rc2=lj["rc2"], **extra))
+
+
+class OnCard(torch.Tensor):
+    """A CPU tensor that the K3 wrapper takes for one on the card, so that
+    it launches (the CPU build) and counts."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+def test_k3_counts_its_half_shell_launches(on_emu, monkeypatch):
+    """CudaLJPath on a grid of >= 3 cells a side counts one
+    half_launches a force call (one a step), equal to launches, with the
+    plain version's forces; calls with z halo rows, an explicit r_j,
+    ny < 3 or Vi count a launch and no half_launches."""
+    launch = cuda_lj.launch_lj_cells_cw
+
+    def plain(t):
+        return None if t is None else t.as_subclass(torch.Tensor)
+
+    monkeypatch.setattr(cuda_lj, "launch_lj_cells_cw",
+                        lambda r_i, r_j=None, **kw: launch(plain(r_i), plain(r_j),
+                                                           **kw))
+    k3 = cuda_lj.lj_cell_forces_cw
+    monkeypatch.setattr(lj_path, "lj_cell_forces_cw",
+                        lambda r_i, **kw: k3(r_i.as_subclass(OnCard), **kw))
+    data = cubic_grid(1000, [11.9] * 3, 1.1)
+    mol, _, table, box = build_scene(data, cutoff=2.5, dtype=torch.float64,
+                                     device="cpu")
+    path = lj_path.CudaLJPath(table, CellGridSpec.create(box.tolist(), 2.5, cap=32))
+    assert min(path.spec.dims) >= 3 and path.cw
+
+    def counts():
+        return k3.launches, k3.half_launches
+
+    n0, h0 = counts()
+    for _ in range(3):
+        forces, _, _ = path(mol)
+    assert counts() == (n0 + 3, h0 + 3)
+    monkeypatch.setattr(lj_path, "lj_cell_forces_cw", k3)
+    want, _, _ = path(mol)
+    assert counts() == (n0 + 3, h0 + 3)  # the plain version counts nothing
+    torch.testing.assert_close(forces.F, want.F, rtol=0,
+                               atol=1e-12 * float(want.F.abs().max()))
+    r, dims, cap = scene("sparse32")
+    kw = dict(cap=cap, cell_len=(CL,) * 3, **LJ)
+    on = r.as_subclass(OnCard)
+    k3(on[1:-1].contiguous(), on, dims=(5, 4, 1), z_halo=True, **kw)
+    k3(on, on, dims=dims, **kw)
+    k3(r[:1, :2].contiguous().as_subclass(OnCard), dims=(5, 2, 1), **kw)
+    k3(on, dims=dims, compute_vi=True, **kw)
+    assert counts() == (n0 + 7, h0 + 3)
+    k3(on, dims=dims, **kw)
+    assert counts() == (n0 + 8, h0 + 4)
 
 
 def test_cpu_tensor_only_for_a_library_built_for_the_cpu(emu_libs):

@@ -5,14 +5,16 @@ by side on one NVIDIA GPU.
         [--kernels K1,K3,K4,K7,K8,K9,K10] [--no-check TAG] ... [--reps 10]
         [--walk] [--gram-order]
 
-Builds csrc/lj_cells.cu (K1), csrc/lj_cells_cw.cu (K3),
-csrc/lj_cells_row.cu (K4), csrc/lj_cells_lanej.cu (K7),
+Builds csrc/lj_cells.cu (K1, and K3's half shell),
+csrc/lj_cells_cw.cu (K3), csrc/lj_cells_row.cu (K4), csrc/lj_cells_lanej.cu (K7),
 csrc/lj_cells_n3l.cu (K8), csrc/lj_cells_zb.cu (K9) and
 csrc/lj_packed.cu (K10) of each variant
 (tools/kernel_variants.py: DIR a copy of ls1_mardyn_tpu_torch/csrc, e.g.
 a parent commit's from `git archive` or an edited copy, and optional
 nvcc flags; default: the checkout's own csrc, tag "tree") and prints
-each library's ptxas report (registers, spills, shared memory).  Each
+each library's ptxas report (registers, spills, shared memory), raw and
+by kernel (chip_smoke.ptxas_report: "f32 1" is the half shell's f32
+instantiation with u6/virial, "f32 0" without).  Each
 variant is first held against the plain versions by chip_smoke.py's
 phases of the selected kernels (f32 and f64, every case, exact in-cutoff
 counts); --no-check skips that for a variant (a parent tree whose
@@ -25,10 +27,15 @@ the full-width 1CLJ start state of chip_smoke.py (N = 4,194,304, f32):
   K1 argon, K8 argon  the RMM engine's planes at the start of the
                    benchmark cell lj_liquid_4m.rmm (chip_smoke.argon_rmm:
                    the argon example at rc 5.154, grid (36,36,36), cap
-                   128), without u6/virial;
-  K3 on K1's grid  the same state, without u6/virial;
+                   128), without u6/virial, and K1 with it ("K1 argon
+                   u6/virial");
+  K3 argon         the general path's layout of the same argon start on
+                   its own grid, the benchmark cell lj_liquid_4m.general's
+                   (chip_smoke.argon_general: (41,41,41) cap 128), with
+                   u6/virial as that path runs it and without;
+  K3 on K1's grid  the dense state, without u6/virial;
   K3               the general path's layout (grid (69,69,69), cap 32),
-                   with u6/virial as that path runs it;
+                   with u6/virial as that path runs it, and without;
   K4               the general path's layout and its one-cell x halo, with
                    u6/virial (the general path with cw off);
   K4 on K1's grid  the RMM state through the view of its switch cw = False,
@@ -64,12 +71,14 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 import kernel_variants as kv  # noqa: E402
 
-# library and check phase of each kernel
-KERNELS = {"K1": ("lj_cells", cs.phase_k1), "K3": ("lj_cells_cw", cs.phase_k3),
-           "K4": ("lj_cells_row", cs.phase_k4),
-           "K7": ("lj_cells_lanej", cs.phase_k7),
-           "K8": ("lj_cells_n3l", cs.phase_k8), "K9": ("lj_cells_zb", cs.phase_k9),
-           "K10": ("lj_packed", cs.phase_k10)}
+# libraries and check phase of each kernel (K3's half shell is K1's launch)
+KERNELS = {"K1": (("lj_cells",), cs.phase_k1),
+           "K3": (("lj_cells_cw", "lj_cells"), cs.phase_k3),
+           "K4": (("lj_cells_row",), cs.phase_k4),
+           "K7": (("lj_cells_lanej",), cs.phase_k7),
+           "K8": (("lj_cells_n3l",), cs.phase_k8),
+           "K9": (("lj_cells_zb",), cs.phase_k9),
+           "K10": (("lj_packed",), cs.phase_k10)}
 
 
 def full_width_inputs(kernels):
@@ -91,10 +100,11 @@ def full_width_inputs(kernels):
     if "K1" in kernels:
         calls["K1"] = (cuda_lj.lj_cell_forces, cuda_lj.lj_cell_forces_reference,
                        (r4,), fast, dict(half=True))
+    # K3's walk: the half shell where its inputs allow it
     if "K3" in kernels:
         calls["K3 on K1's grid"] = (cuda_lj.lj_cell_forces_cw,
                                     cuda_lj.lj_cell_forces_cw_reference,
-                                    (r4.contiguous(),), fast, {})
+                                    (r4.contiguous(),), fast, dict(half=True))
     V = cuda_lj_variants
     r_i, r_j = rsim._row_views(r4)
     row_walk = dict(j_cells=cuda_lj._row_j_cells(r_j, dims=dims, cap=cap,
@@ -135,9 +145,11 @@ def full_width_inputs(kernels):
         gkw = dict(dims=path.spec.dims, cap=path.spec.cap, eps24=path.eps24,
                    sig2=path.sig2, shift6=path.shift6, rc2=path.rc2)
         if "K3" in kernels:
-            calls["K3"] = (cuda_lj.lj_cell_forces_cw,
-                           cuda_lj.lj_cell_forces_cw_reference, (r_i,),
-                           dict(gkw, cell_len=path.spec.cell_len), {})
+            for key, macro in (("K3", True), ("K3 without u6/virial", False)):
+                calls[key] = (cuda_lj.lj_cell_forces_cw,
+                              cuda_lj.lj_cell_forces_cw_reference, (r_i,),
+                              dict(gkw, cell_len=path.spec.cell_len,
+                                   compute_macro=macro), dict(half=True))
         if "K4" in kernels:
             r_j = path.x_halo(r_i)
             calls["K4"] = (
@@ -159,6 +171,20 @@ def full_width_inputs(kernels):
             if k in kernels:
                 calls[k + " argon"] = (fn, cuda_lj.lj_cell_forces_reference,
                                        (a4,), akw, dict(half=True))
+        if "K1" in kernels:
+            calls["K1 argon u6/virial"] = (
+                cuda_lj.lj_cell_forces, cuda_lj.lj_cell_forces_reference, (a4,),
+                dict(akw, compute_macro=True), dict(half=True))
+        del md
+    if "K3" in kernels:
+        md, path, r_i = cs.argon_general()
+        gkw = dict(dims=path.spec.dims, cap=path.spec.cap,
+                   cell_len=path.spec.cell_len, eps24=path.eps24, sig2=path.sig2,
+                   shift6=path.shift6, rc2=path.rc2)
+        for key, macro in (("K3 argon u6/virial", True), ("K3 argon", False)):
+            calls[key] = (cuda_lj.lj_cell_forces_cw,
+                          cuda_lj.lj_cell_forces_cw_reference, (r_i,),
+                          dict(gkw, compute_macro=macro), dict(half=True))
         del md
     return calls
 
@@ -210,8 +236,14 @@ def main():
     smi = cs.phase_device()
     import ls1_mardyn_tpu_torch  # noqa: F401  (precision flags)
 
+    names = dict.fromkeys(lib for k in kernels for lib in KERNELS[k][0])
     libs = kv.build(kv.parse(args.variant, ROOT / "ls1_mardyn_tpu_torch" / "csrc"),
-                    [KERNELS[k][0] for k in kernels])
+                    list(names))
+    for tag, built in libs.items():
+        for lib, path in built.items():
+            log = Path(path._name).with_suffix(".log").read_text()
+            cs.say("ptxas", variant=tag, lib=lib,
+                   kernels=json.dumps(cs.ptxas_report(lib, log=log)))
     for tag, lib in libs.items():
         if tag in args.no_check:
             continue
