@@ -9,8 +9,8 @@ checks that every kernel of a path was launched by it:
   - a 1CLJ NVT fluid of N = 4,194,304 molecules (rho 0.8, rc 2.5, T 1.1)
     started from the committed equilibrated seed
     assets/bench_seed_524288.npz tiled 2x2x2: MDSimulation -> RMMEngine
-    -> RMMSimulation (kernels K1, K2; through its kernel switches K4, K3,
-    K7, K8, K9), the same state packed into pencils (K10), and
+    -> RMMSimulation (kernels K1, K2), the same state packed into pencils
+    (K10), and
     MDSimulation(force_mode="pallas") -> SingleChipSimulation ->
     CudaLJPath (kernels K3, K4);
   - a rigid 2CLJ+quadrupole (CO2-class) fluid of N = 1,061,208 molecules
@@ -70,11 +70,11 @@ non-zero and never prints the result line):
            near-rc scenes, cap 32 and 64, f32 and f64 (limits as K1), with
            in-cutoff counts as K1; defer=True and False bit-identical;
            cap 1024 agrees and cap 1056 raises
-  K8       Newton-3rd-law forces vs plain on the cut RMM state read in
-           place, on 3x3x3 cells (the smallest grid it takes) and on K1's
-           sparse, full and near-rc scenes, with each case's unordered
-           in-cutoff count equal to the plain version's; against K1
-           reported
+  K8       Newton-3rd-law forces (K1's launch under K8's wrapper) vs
+           plain on the cut RMM state read in place, on 3x3x3 cells (the
+           smallest grid it takes) and on K1's sparse, full and near-rc
+           scenes, with each case's unordered in-cutoff count equal to
+           the plain version's
   K9       K1's function (the TPU's z-banded kernel) vs plain, direct
            and Gram r^2, on the cut RMM state's 8-plane tensor read in
            place (sentinel fill) and on K1's sparse, full and near-rc
@@ -115,11 +115,12 @@ non-zero and never prints the result line):
            thermostat, LJ shifted at rc, f32, 10,000 steps at each dt of
            NVE_DTS; E sampled every 100 steps; drift max|E-E0|/max(|E0|,1)
            below 1e-4 at NVE_GATE_DT = 0.0005
-  main/<switch>  3 steps each through RMMSimulation's switches, set on
-           md.engine.sim: row (K4), cw (K3), lanej (K7), n3l (K8), zb and
-           zb_gram (K9); the selected kernel ran every step, T within 10%
   packed   pack the main state into pencils, tables, K10, unpack:
            feasible, Wp, forces against K1 on the same state
+  variants K7 (with the planes' x halo), K8 and K9 (direct and Gram)
+           once each on the main state, their counters set to 0 just
+           before: launches 1, 1 and 2, forces against K1 on the same
+           state (the limits of packed)
   general  the general engine at N=4,194,304: MDSimulation(
            force_mode="pallas"), a warm-up and a timed window of 16
            steps (K3 once per step), then 3 steps with the path's cw
@@ -197,7 +198,9 @@ non-zero and never prints the result line):
            steps, then 16-step windows with and without the plugin set
            (ms/step of each), host reads a step, molecules inserted,
            released and deleted
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]}, each kernel's
+`engine_caller` false where no engine launches it (K7-K10: their
+launches are those of variants and packed); the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no
 result.
 """
@@ -216,7 +219,7 @@ SEED = os.path.join(HERE, "assets", "bench_seed_524288.npz")
 N_MAIN = 4_194_304
 RHO, RC, TEMP, DT = 0.8, 2.5, 1.1, 0.002
 LIBS = ("lj_cells", "rebin_shift", "lj_cells_cw", "lj_cells_row", "ms_dense",
-        "ms_packed", "lj_cells_lanej", "lj_cells_n3l", "lj_cells_zb", "lj_packed")
+        "ms_packed", "lj_cells_lanej", "lj_cells_zb", "lj_packed")
 # name, source, TPU kernel it replaces
 KERNELS = {
     "K1": ("K1 lj_cell_forces", "ls1_mardyn_tpu_torch/csrc/lj_cells.cu",
@@ -234,23 +237,16 @@ KERNELS = {
            "ls1_mardyn_tpu/ops/pallas_multisite.py:663"),
     "K7": ("K7 lj_cell_forces_lanej", "ls1_mardyn_tpu_torch/csrc/lj_cells_lanej.cu",
            "ls1_mardyn_tpu/ops/pallas_lj.py:649"),
-    "K8": ("K8 lj_cell_forces_n3l", "ls1_mardyn_tpu_torch/csrc/lj_cells_n3l.cu",
+    "K8": ("K8 lj_cell_forces_n3l", "ls1_mardyn_tpu_torch/csrc/lj_cells.cu",
            "ls1_mardyn_tpu/ops/pallas_lj.py:952"),
     "K9": ("K9 lj_cell_forces_zb", "ls1_mardyn_tpu_torch/csrc/lj_cells_zb.cu",
            "ls1_mardyn_tpu/ops/pallas_lj.py:1273"),
     "K10": ("K10 lj_forces_packed", "ls1_mardyn_tpu_torch/csrc/lj_packed.cu",
             "ls1_mardyn_tpu/ops/pallas_packed.py:517"),
 }
-# the RMM engine's kernel switches (ops/rmm.py), each driven for 3 steps
-# on the main path: the kernel it selects, and the switches it sets
-RMM_SWITCHES = (
-    ("K4", "row", dict(cw=False)),
-    ("K3", "cw", dict(cwn3l=False)),
-    ("K7", "lanej", dict(cw=False, lanej=True)),
-    ("K8", "n3l", dict(cw=False, n3l=True)),
-    ("K9", "zb", dict(cw=False, zb=True)),
-    ("K9", "zb_gram", dict(cw=False, zb=True, zb_gram=True)),
-)
+# the kernels no engine calls: their launches are those of one call
+# each on the main state (phase_variants, phase_packed)
+NO_ENGINE = ("K7", "K8", "K9", "K10")
 # the full-width multi-site scene: a 2CLJ+quadrupole (CO2-class) fluid on
 # a 102^3 lattice at the cutoff of ls1's CO2 example (33.07 a0 = 6.2 sigma)
 N_MS, RHO_MS, RC_MS = 1_061_208, 0.45, 6.2
@@ -876,14 +872,11 @@ def phase_k7(device):
 
 
 def phase_k8(device):
-    """K8 vs its plain version on the RMM state's planes read in place,
-    on 3x3x3 cells (the smallest grid it takes) as a periodic grid of
-    their own, and on the check scenes (sparse, full, near-rc), with each
-    case's unordered in-cutoff count equal to the plain version's; K8
-    against K1 on the same state is reported (each pair once against each
-    pair from both sides: two roundings of r^2, so a pair at the cutoff
-    may count on one side only)."""
-    from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces
+    """K8 (K1's launch under K8's wrapper) vs its plain version on the
+    RMM state's planes read in place, on 3x3x3 cells (the smallest grid
+    it takes) as a periodic grid of their own, and on the check scenes
+    (sparse, full, near-rc), with each case's unordered in-cutoff count
+    equal to the plain version's."""
     from ls1_mardyn_tpu_torch.ops.cuda_lj_variants import (
         lj_cell_forces_n3l, lj_cell_forces_n3l_reference)
 
@@ -907,12 +900,10 @@ def phase_k8(device):
                 counts[tag] = check_counts(f"K8 {tag} ({dtype}, cap {cap})", r,
                                            kernel="n3l", dims=dims, cap=cap,
                                            cell_len=cl, rc2=ljc["rc2"])
-            kw = dict(dims=sim.spec.dims, cap=cap, cell_len=sim.cell_len, **lj)
-            vs_k1 = rel_errors(lj_cell_forces_n3l(r4, **kw), lj_cell_forces(r4, **kw))
             say("K8", dtype=str(dtype).split(".")[1], cap=cap, grid=sim.spec.dims,
                 rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}),
                 inside_unordered=json.dumps(counts), counts_equal=True,
-                limit=lim, vs_K1=json.dumps([f"{v:.2e}" for v in vs_k1]))
+                limit=lim)
             check(max(errs.values()) <= lim,
                   f"K8 disagrees with its plain version ({dtype}, cap {cap}): {errs}")
     say("K8", launches=lj_cell_forces_n3l.launches)
@@ -1642,39 +1633,6 @@ def phase_main(device, smi):
     return sim, launches
 
 
-def phase_switches(sim, smi):
-    """The main path through each kernel switch of RMMSimulation, set on
-    md.engine.sim: 3 steps each, every LJ counter set to 0 just before
-    and read just after; the selected kernel ran every step and no other,
-    T within 10%.  The switches are restored afterwards."""
-    from ls1_mardyn_tpu_torch.ops import cuda_lj, cuda_lj_variants as V
-
-    rsim = sim.engine.sim
-    names = ("cw", "cwn3l", "lanej", "lanej_defer", "n3l", "zb", "zb_gram")
-    defaults = {k: getattr(rsim, k) for k in names}
-    counters = {"K1": cuda_lj.lj_cell_forces, "K3": cuda_lj.lj_cell_forces_cw,
-                "K4": cuda_lj.lj_cell_forces_row, "K7": V.lj_cell_forces_lanej,
-                "K8": V.lj_cell_forces_n3l, "K9": V.lj_cell_forces_zb}
-    launches = {}
-    for key, tag, switches in RMM_SWITCHES:
-        for k, v in {**defaults, **switches}.items():
-            setattr(rsim, k, v)
-        for c in counters.values():
-            c.launches = 0
-        ms, gv = timed_window(sim, 3)
-        got = {k: c.launches for k, c in counters.items()}
-        T, p, U = check_globals(f"main/{tag}", gv, N_MAIN)
-        say("main", switch=tag, kernel=key, steps=3, ms_per_step=f"{ms:.3f}",
-            T=f"{T:.6f}", p=f"{p:.6f}", upot_per_mol=f"{U / N_MAIN:.6f}",
-            launches=json.dumps(got), gpu=repr(smi))
-        check(got[key] == 3 and sum(got.values()) == 3,
-              f"main/{tag}: launches {got} in 3 steps")
-        launches[key] = launches.get(key, 0) + got[key]
-    for k, v in defaults.items():
-        setattr(rsim, k, v)
-    return launches
-
-
 def phase_packed(sim, smi):
     """K10 on the main path's state: pack the RMM planes into pencils,
     build the tables, K10, unpack; the forces against K1 on the same
@@ -1712,6 +1670,47 @@ def phase_packed(sim, smi):
     check(n == 1 and errs[0] <= 1e-3 and max(errs[1:]) <= 1e-5,
           f"K10 on the main state against K1: {errs}, launches {n}")
     return {"K10": n}
+
+
+def phase_variants(sim, smi):
+    """K7, K8 and K9, which no engine calls, each launched on the main
+    path's state with its counter set to 0 just before: K7 on a copy of
+    the planes with their x halo, K8 (K1's launch under its own
+    wrapper), K9 with direct and with Gram r^2; the forces held against
+    K1 on the same state, with the limits of phase_packed (each pair
+    once in K1 and K8, from both sides in K7 and K9: a pair within an
+    ulp of the cutoff may count in one and not the other).  Returns the
+    launches: 1 each, 2 for K9."""
+    from ls1_mardyn_tpu_torch.ops.cuda_lj import lj_cell_forces
+    from ls1_mardyn_tpu_torch.ops import cuda_lj_variants as V
+
+    rsim = sim.engine.sim
+    r4 = rsim.state.planes[:, :, :4, :]
+    dims, cap = rsim.spec.dims, rsim.spec.cap
+    lj = dict(eps24=rsim.eps24, sig2=rsim.sig2, shift6=rsim.shift6, rc2=rsim.rc2)
+    kw = dict(dims=dims, cap=cap, cell_len=rsim.cell_len, **lj)
+    ref = lj_cell_forces(r4, **kw)
+    r_i = r4.contiguous()
+    counters = {"K7": V.lj_cell_forces_lanej, "K8": V.lj_cell_forces_n3l,
+                "K9": V.lj_cell_forces_zb}
+    for c in counters.values():
+        c.launches = 0
+    errs = {
+        "K7": rel_errors(V.lj_cell_forces_lanej(
+            r_i, x_halo(r_i, dims[0], cap), dims=dims, cap=cap,
+            box=rsim.spec.box, **lj), ref),
+        "K8": rel_errors(V.lj_cell_forces_n3l(r4, **kw), ref),
+        "K9": rel_errors(V.lj_cell_forces_zb(r4, **kw), ref),
+        "K9 gram": rel_errors(V.lj_cell_forces_zb(r4, gram=True, **kw), ref)}
+    launches = {k: c.launches for k, c in counters.items()}
+    say("variants", grid=dims, cap=cap,
+        rel_vs_K1=json.dumps({k: [f"{e:.2e}" for e in v] for k, v in errs.items()}),
+        launches=json.dumps(launches), gpu=repr(smi))
+    check(launches == {"K7": 1, "K8": 1, "K9": 2},
+          f"K7/K8/K9 on the main state: launches {launches}")
+    check(all(e[0] <= 1e-3 and max(e[1:]) <= 1e-5 for e in errs.values()),
+          f"K7/K8/K9 on the main state against K1: {errs}")
+    return launches
 
 
 def phase_general(device, smi):
@@ -1976,8 +1975,8 @@ def ptxas_report(name, log=None):
     report): {"f32"|"f64"|entry: {...}}; a warp-skeleton kernel
     (csrc/lj_warp.cuh) as "f32 macro vi gram" with its template flags,
     e.g. "f32 100" (u6/virial, no Vi, no Gram), the half shell's (K1's,
-    also K3's half-shell branch, and K8's, in csrc/lj_cells.cu and
-    lj_cells_n3l.cu) and K10's (csrc/lj_packed.cu) as "f32 macro"."""
+    also K3's half-shell branch and K8, in csrc/lj_cells.cu) and K10's
+    (csrc/lj_packed.cu) as "f32 macro"."""
     import re
 
     from ls1_mardyn_tpu_torch.ops import _build
@@ -1987,7 +1986,7 @@ def ptxas_report(name, log=None):
         if "Compiling entry function" in ln:
             ent = ln.split("'")[1]
             warp = re.search(
-                r"(?:warp_cells|n3l|packed)_kernel(?:_half)?I([fd])((?:Lb[01]E)+)",
+                r"(?:warp_cells|packed)_kernel(?:_half)?I([fd])((?:Lb[01]E)+)",
                 ent)
             if warp:
                 cur = ("f32 " if warp.group(1) == "f" else "f64 ") + "".join(
@@ -2583,14 +2582,14 @@ def argon_general(seed=0):
 
 
 def argon_times(smi):
-    """K1 and K8 (one kernel body, the half shell) beside their plain
-    version on the argon state of the benchmark (argon_rmm): times
-    without and with u6/virial, the bound, and what their warps walk by
-    the half shell and, for the comparison, by the full one.  Then K3
-    on the general cell's own grid of the same state (argon_general,
-    the half shell): held to its plain version with and without
-    u6/virial, its in-cutoff count checked, timed."""
-    from ls1_mardyn_tpu_torch.ops import cuda_lj, cuda_lj_variants as V
+    """K1 (the half shell) beside its plain version on the argon state
+    of the benchmark (argon_rmm): times without and with u6/virial, the
+    bound, and what its warps walk by the half shell and, for the
+    comparison, by the full one.  Then K3 on the general cell's own grid
+    of the same state (argon_general, the half shell): held to its plain
+    version with and without u6/virial, its in-cutoff count checked,
+    timed."""
+    from ls1_mardyn_tpu_torch.ops import cuda_lj
 
     md, rsim = argon_rmm()
     r4 = rsim.state.planes[:, :, :4, :]
@@ -2603,18 +2602,16 @@ def argon_times(smi):
                                              rsim.rc2, half=True)),
                 full=json.dumps(lj_warp_walk(r4, dims, cap, rsim.cell_len,
                                              rsim.rc2)))
-    for key, fn, lib in (("K1", cuda_lj.lj_cell_forces, "lj_cells"),
-                         ("K8", V.lj_cell_forces_n3l, "lj_cells_n3l")):
-        res, err, rel = lj_times(key + " argon", fn,
-                                 cuda_lj.lj_cell_forces_reference, (r4,), kw)
-        say("times", kernel=key, state="argon", grid=dims, cap=cap,
-            n=int((r4[:, :, 3] > 0.5).sum()),
-            ms_fast=f"{res[False][0]:.3f}", plain_ms_fast=f"{res[False][1]:.3f}",
-            ms_macro=f"{res[True][0]:.3f}", plain_ms_macro=f"{res[True][1]:.3f}",
-            max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
-            bound=json.dumps(bound), walk_half_shell=walk["half"],
-            walk_full_shell=walk["full"], ptxas=json.dumps(ptxas_report(lib)),
-            gpu=repr(smi))
+    res, err, rel = lj_times("K1 argon", cuda_lj.lj_cell_forces,
+                             cuda_lj.lj_cell_forces_reference, (r4,), kw)
+    say("times", kernel="K1", state="argon", grid=dims, cap=cap,
+        n=int((r4[:, :, 3] > 0.5).sum()),
+        ms_fast=f"{res[False][0]:.3f}", plain_ms_fast=f"{res[False][1]:.3f}",
+        ms_macro=f"{res[True][0]:.3f}", plain_ms_macro=f"{res[True][1]:.3f}",
+        max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
+        bound=json.dumps(bound), walk_half_shell=walk["half"],
+        walk_full_shell=walk["full"], ptxas=json.dumps(ptxas_report("lj_cells")),
+        gpu=repr(smi))
     del md, rsim
 
     md, path, r_i = argon_general()
@@ -2706,7 +2703,7 @@ def variant_times(rsim, r4, smi):
             more.update(walk=json.dumps(lj_warp_walk(
                 r4, dims, cap, rsim.cell_len, rsim.rc2)),
                 walk_half=json.dumps(k8_half),
-                ptxas=json.dumps(ptxas_report("lj_cells_n3l")))
+                ptxas=json.dumps(ptxas_report("lj_cells")))
         if key == "K9":
             more.update(walk=json.dumps(lj_warp_walk(
                 r4, dims, cap, rsim.cell_len, rsim.rc2)),
@@ -3810,9 +3807,9 @@ def main():
     phase_multisite_small(device)
     phase_plugins_small(device)
     sim_rmm, launches = phase_main(device, smi)
-    switched = phase_switches(sim_rmm, smi)
-    launches.update({k: switched[k] for k in ("K7", "K8", "K9")})
     launches.update(phase_packed(sim_rmm, smi))
+    # no engine calls K7, K8 or K9: their launches on the main state
+    launches.update(phase_variants(sim_rmm, smi))
     # the main path with its writers: K1 and K2 launched by it too
     for k, n in phase_main_plugins(sim_rmm, device, smi).items():
         launches[k] += n
@@ -3847,7 +3844,8 @@ def main():
                              *KERNELS["K5"][1:])}.items():
         check(launches[key] > 0, f"{key} was launched by no path")
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": tpu, "launches": launches[key],
+                        "replaces": tpu, "engine_caller": key not in NO_ENGINE,
+                        "launches": launches[key],
                         **times[key], "library_ms": None})
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

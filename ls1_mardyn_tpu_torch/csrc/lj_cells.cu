@@ -31,9 +31,9 @@
 // shared atomics and flushed; the i forces reach f by atomics at the
 // warp's end.  f is zeroed by the wrapper, and the order of the sums
 // varies from run to run: f agrees with the plain version to rounding
-// and is not bitwise reproducible.  K8 (lj_cells_n3l.cu, the RMM
-// engine's switch n3l) is the same kernel under its own name, and K3's
-// wrapper launches this kernel where it takes the half shell.
+// and is not bitwise reproducible.  The wrappers of K8 (the TPU's
+// half-shell variant) and of K3, where K3 takes the half shell, launch
+// this kernel too.
 //
 // Measured and dropped (H100, PERF.md): summing the reactions of a
 // cell's warps per block in shared memory where a block is one cell (cap

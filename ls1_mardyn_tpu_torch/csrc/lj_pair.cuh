@@ -1,10 +1,10 @@
 // Device code shared by the LJ-12-6 cell kernels: the pair term, the
 // rounding helpers, the neighbour functor of the cell-local layouts
 // (LocalNbr) and the per-block reduction of u6 and the virial.  K1
-// (lj_cells.cu), K3 (lj_cells_cw.cu), K4 (lj_cells_row.cu), K7
-// (lj_cells_lanej.cu), K8 (lj_cells_n3l.cu) and K9 (lj_cells_zb.cu) run
+// (lj_cells.cu, also launched as K8), K3 (lj_cells_cw.cu), K4
+// (lj_cells_row.cu), K7 (lj_cells_lanej.cu) and K9 (lj_cells_zb.cu) run
 // on the warp skeleton of lj_warp.cuh, which culls and compacts the j
-// slots (K1 and K8 by its half shell); K10 (lj_packed.cu, packed
+// slots (K1 by its half shell); K10 (lj_packed.cu, packed
 // pencils) has a kernel of its own built from its pieces.
 //
 // Rounding: r^2 is rounded exactly as in the plain PyTorch versions (no

@@ -1,6 +1,6 @@
-// Warp-level skeleton of the 1CLJ cell kernels K1 (lj_cells.cu), K3
-// (lj_cells_cw.cu), K4 (lj_cells_row.cu), K7 (lj_cells_lanej.cu), K8
-// (lj_cells_n3l.cu) and K9 (lj_cells_zb.cu): one warp owns 32 slots of
+// Warp-level skeleton of the 1CLJ cell kernels K1 (lj_cells.cu, also
+// launched as K8), K3 (lj_cells_cw.cu), K4 (lj_cells_row.cu), K7
+// (lj_cells_lanej.cu) and K9 (lj_cells_zb.cu): one warp owns 32 slots of
 // one i cell, stages the j slots of its neighbour cells itself, keeps
 // only those that can hold a pair inside the cutoff, and walks the kept
 // slots.  The pair term, the rounding helpers, the neighbour functor of
@@ -11,9 +11,9 @@
 // lie, and their image shift) and adds its extern "C" entry points.  K4,
 // K7 and K9 walk all 27 neighbour cells and evaluate each pair from both
 // sides (warp_cells_kernel), as K3 does where its inputs rule out the
-// half shell.  K1 and K8 evaluate each pair once, by Newton's third law
-// on the half shell: one kernel body, half_shell, at the end of this
-// header, under two names; K3's wrapper launches K1's where its j source
+// half shell.  K1 evaluates each pair once, by Newton's third law on
+// the half shell: the kernel body half_shell, at the end of this header.
+// K8's wrapper launches K1's kernel, and so does K3's where its j source
 // is its own layout, with no halo rows, three cells or more an axis and
 // no Vi.  K10
 // (lj_packed.cu, the half shell on packed pencils) has a kernel of its
@@ -108,7 +108,7 @@
 // compile-time constant): a runtime stride or `#pragma unroll 1` cost
 // 4-20%.  Testing a ring first and running the pair terms on the hits
 // only (per-lane bit masks) was slower on both states.  By the half
-// shell (K1, K8), half the j iterations at ~1.4x the cost each: on the
+// shell (K1), half the j iterations at ~1.4x the cost each: on the
 // benchmark's argon state (grid (36,36,36), cap 128, ~90 molecules a
 // cell, rc 5.15) a warp walks 629 j iterations against 1,236 by the full
 // shell, and K1 takes 6.41 ms against 8.91 (2.51 against 3.08 on the
@@ -479,8 +479,8 @@ __global__ void __launch_bounds__(WARPS * 32)
   if (MACRO) ljk::block_macro(acc.u6, acc.vir, part);
 }
 
-// -- Newton's third law: the half shell of K1 (lj_cells.cu), K8
-// (lj_cells_n3l.cu) and K10 (lj_packed.cu).  Each pair is evaluated once,
+// -- Newton's third law: the half shell of K1 (lj_cells.cu) and K10
+// (lj_packed.cu).  Each pair is evaluated once,
 // by the i side; its reaction -F_ij goes to the j entry.  A ring entry's
 // w tells the half shell: an own-cell (own-pencil) entry carries its slot
 // (lane), a forward one a value above every i's, and the pair counts
@@ -489,14 +489,14 @@ __global__ void __launch_bounds__(WARPS * 32)
 //   * a full round of 32 entries by register rotation (rotate): each
 //     lane holds one item and three sums, meets what its lane holds
 //     fixed, and passes item and sums on to the lane below by shuffles,
-//     so no two lanes ever add to the same sum.  K1 and K8 rotate the j
+//     so no two lanes ever add to the same sum.  K1 rotates the j
 //     entries and their reactions past fixed i (walk_rotate); K10
 //     rotates its i and their forces past fixed j entries, because its
 //     i side carries the pencil's y/z shift (see lj_packed.cu);
 //   * the last, partial round skewed (walk_skewed_to): the lane of rank
 //     l takes the entry of rank (l + b) mod m at step b and hands the
 //     reaction to a sink that adds it atomically (two lanes may take one
-//     entry when m is below the lanes); K8 and K10 add it to the entry's
+//     entry when m is below the lanes); K1 and K10 add it to the entry's
 //     sums in shared memory (walk_skewed) and then one lane an entry adds
 //     them to f (flush).
 // What becomes of a round's reactions is the caller's sink (a lambda):
@@ -705,9 +705,8 @@ inline long long half_parts(int nx, int ny, int nz, int cap) {
   return (long long)nx * ny * nz * (cap / 32);
 }
 
-// The half-shell kernel of K1 (lj_cells.cu, also K3's half-shell branch)
-// and K8 (lj_cells_n3l.cu), one body under two names: forces on every
-// slot of the cell-local layout
+// The half-shell kernel of K1 (lj_cells.cu; launched by K3's half-shell
+// branch and by K8 too): forces on every slot of the cell-local layout
 // r[nz, ny, P, nx*cap] (nbr its neighbour functor) into f[nz, ny, 3,
 // nx*cap] (zeroed by the caller), each pair of the half shell once; u6
 // and the virial counted once per pair.  A warp stages the valid j slots

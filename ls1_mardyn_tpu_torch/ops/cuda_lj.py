@@ -26,9 +26,11 @@ of the sums, so the last bits of f, varies from run to run.  K3 takes
 the same half shell (K1's launch) wherever its inputs allow it
 (cw_half_shell: the j source is r_i itself, no z halo, every axis >= 3
 cells, no Vi); every other K3 call, and K4, walk all 27 neighbour cells
-and evaluate each pair from both sides.  The launch_* functions are the
-launches behind the wrappers, on checked inputs; they raise for a CPU
-tensor unless the library was built for the CPU (tools/cuda_emu.py).
+and evaluate each pair from both sides.  K8 (ops/cuda_lj_variants.py,
+the TPU's half-shell variant) is K1's launch under its own name.  The
+launch_* functions are the launches behind the wrappers, on checked
+inputs; they raise for a CPU tensor unless the library was built for
+the CPU (tools/cuda_emu.py).
 inside_pairs counts the pairs inside the cutoff that K1, K3, K4, K7,
 K8, K9 or K10 evaluates (a launch with eps24 = 0 and shift6 = 1;
 ordered pairs, unordered for K1, K8 and K10; K3's half shell counts
@@ -167,8 +169,8 @@ def lj_cell_forces_reference(
     r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2, compute_macro=True,
     count=False
 ):
-    """Plain PyTorch version of K1 (and of K8, which walks the same half
-    shell): the own cell with j > i and the 13 forward neighbour cells,
+    """Plain PyTorch version of K1 (and of K8, which is K1's launch): the
+    own cell with j > i and the 13 forward neighbour cells,
     gathered with a periodic roll, all cap x cap slot pairs of each; each
     pair inside the cutoff once, its force added to the i slot and
     subtracted from the j slot with index_add_.  u6 and the virial are
@@ -249,7 +251,6 @@ _ARGTYPES = {
     "lj_cells_cw": [_VP] * 4 + [_CI] * 7 + [_CD] * 7 + [_CI, _CI, _VP],
     "lj_cells_row": [_VP] * 4 + [_CI] * 8 + [_CD] * 7 + [_CI, _VP],
     "lj_cells_lanej": [_VP] * 4 + [_CI] * 4 + [_CD] * 7 + [_CI, _CI, _VP],
-    "lj_cells_n3l": [_VP] * 3 + [_CI] * 5 + [_CD] * 7 + [_CI, _VP],
     "lj_cells_zb": [_VP] * 3 + [_CI] * 5 + [_CD] * 7 + [_CI, _CI, _VP],
 }
 
@@ -520,13 +521,13 @@ def inside_pairs(r_i, r_j=None, *, kernel="K3", **kw):
     """Pairs inside the cutoff that a kernel evaluates on these inputs:
     its launch with eps24 = 0 and shift6 = 1, counted by pairs_from_part
     (ordered pairs; unordered for K1, K8 and K10).  kernel: "K3" (r_j,
-    z_halo, compute_vi), "K1" (r_j None), "row" (K4: r_j its j view, and
-    its box, hx, local_coords, z_halo, y_halo), "lanej" (K7: r_j its j
-    view, and its box), "n3l" (K8, r_j None), "zb" or "zb_gram" (K9
-    plain or Gram, r_j None), "packed" (K10: r_i its pos4; kw its tab,
-    meta, nx, ny, nz, Wp, box and rc2); kw: dims, cap, rc2 and cell_len
-    (all but K4, K7 and K10), and the kernel's options.  A CPU tensor counts the plain
-    version's pairs (inside_pairs_reference)."""
+    z_halo, compute_vi), "K1" or "n3l" (K1, and K8, which is K1's launch;
+    r_j None), "row" (K4: r_j its j view, and its box, hx, local_coords,
+    z_halo, y_halo), "lanej" (K7: r_j its j view, and its box), "zb" or
+    "zb_gram" (K9 plain or Gram, r_j None), "packed" (K10: r_i its pos4;
+    kw its tab, meta, nx, ny, nz, Wp, box and rc2); kw: dims, cap, rc2
+    and cell_len (all but K4, K7 and K10), and the kernel's options.  A
+    CPU tensor counts the plain version's pairs (inside_pairs_reference)."""
     if r_i.device.type == "cpu":
         return inside_pairs_reference(r_i, r_j, kernel=kernel, **kw)
     if kernel == "packed":
@@ -541,14 +542,11 @@ def inside_pairs(r_i, r_j=None, *, kernel="K3", **kw):
             raise ValueError(f"inside_pairs: {kernel} reads its own j cells")
     from ls1_mardyn_tpu_torch.ops import cuda_lj_variants as V
 
-    if kernel == "K1":
+    if kernel in ("K1", "n3l"):
         _, part = launch_lj_cells(r_i, **kw)
         return pairs_from_part(part, halved=False)
     elif kernel in ("zb", "zb_gram"):
         _, part = V.launch_lj_cells_zb(r_i, gram=kernel == "zb_gram", **kw)
-    elif kernel == "n3l":
-        _, part = V.launch_lj_cells_n3l(r_i, **kw)
-        return pairs_from_part(part, halved=False)
     elif kernel == "lanej":
         _, part = V.launch_lj_cells_lanej(r_i, r_j, **kw)
     elif kernel == "row":

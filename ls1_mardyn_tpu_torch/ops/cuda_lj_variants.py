@@ -1,12 +1,13 @@
-"""Kernels K7, K8 and K9: the RMM engine's LJ-12-6 kernel variants.
+"""Kernels K7, K8 and K9: the LJ-12-6 kernel variants of the JAX RMM engine.
 
 The JAX package keeps three more 1CLJ cell kernels behind switches of
-RMMSimulation (ls1_mardyn_tpu/ops/rmm.py: lanej, n3l, zb); each computes
-the function of K1 with another traversal.  Each CUDA kernel here
-replaces one of them and has its plain PyTorch version beside it:
+its RMMSimulation (ls1_mardyn_tpu/ops/rmm.py: lanej, n3l, zb); each
+computes the function of K1 with another traversal.  The port's RMM
+engine runs K1 alone; each kernel here stands for one of the three as a
+library function, with its plain PyTorch version beside it:
 
   K7 lj_cell_forces_lanej  csrc/lj_cells_lanej.cu  lj_cell_forces_pallas_lanej
-  K8 lj_cell_forces_n3l    csrc/lj_cells_n3l.cu    lj_cell_forces_pallas_n3l
+  K8 lj_cell_forces_n3l    csrc/lj_cells.cu (K1)   lj_cell_forces_pallas_n3l
   K9 lj_cell_forces_zb     csrc/lj_cells_zb.cu     lj_cell_forces_pallas_zb
 
 Layouts are ops/cuda_lj.py's (cell-local coordinates, cap slots per cell
@@ -15,14 +16,13 @@ K7 takes the i planes and a j view with one x halo cell per side, as
 the TPU kernel and K4 do.  Energies: K7 and K9 evaluate each pair from
 both sides and halve u6 and the virial, K8 evaluates each pair once, as
 K1 does.  A wrapper takes the plain version only for a CPU tensor; a
-CUDA tensor launches the kernel (built at first use) or raises.  All
-three run on the warp skeleton of csrc/lj_warp.cuh, which takes any cap
-the wrappers take: K7 with K4's neighbour functor, K8 by K1's half
-shell with each warp's reactions passed through the lanes by shuffles
-and added to j by global atomics: K1's kernel under its own name.
-launch_lj_cells_lanej,
-launch_lj_cells_n3l and launch_lj_cells_zb are their launches on
-checked inputs.
+CUDA tensor launches the kernel (built at first use) or raises.  K7 and
+K9 run on the warp skeleton of csrc/lj_warp.cuh, which takes any cap
+the wrappers take, K7 with K4's neighbour functor.  The TPU's K8 is the
+half-shell traversal that K1 now walks, so K8 launches K1's kernel
+(ops/cuda_lj.launch_lj_cells), and K1's plain version is K8's.
+launch_lj_cells_lanej and launch_lj_cells_zb are the launches of K7 and
+K9 on checked inputs.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from ls1_mardyn_tpu_torch.ops.cuda_lj import (
     _planes_out,
     _reference,
     _row_units,
+    launch_lj_cells,
     lj_cell_forces_reference,
     lj_cell_forces_row_reference,
 )
@@ -110,8 +111,8 @@ def launch_lj_cells_lanej(r_i, r_j, *, dims, cap, box, eps24, sig2, shift6,
 
 # -- K8: Newton's third law, the half shell --------------------------------------
 
-# K8 is K1's kernel (csrc/lj_warp.cuh's half_shell) under the name of the
-# TPU's half-shell variant: one plain version serves both
+# the TPU's half-shell variant is K1's traversal: one kernel and one plain
+# version serve both
 lj_cell_forces_n3l_reference = lj_cell_forces_reference
 
 
@@ -121,10 +122,10 @@ def lj_cell_forces_n3l(
     """K8 wrapper: 1CLJ forces of the cell-local layout r4 [nz, ny, 4,
     nx*cap] (may be the first 4 planes of the RMM state's 8-plane
     tensor) by Newton's third law: each pair once, the reaction written
-    to j.  Needs nx, ny, nz >= 3 (with two cells on an axis the offsets
-    +1 and -1 reach the same cell, and the forward half is no half).
-    Returns (f [nz,ny,3,nx*cap], u6, vir), u6 and vir counted once per
-    pair (the totals of K1)."""
+    to j, by K1's launch.  Needs nx, ny, nz >= 3 (with two cells on an
+    axis the offsets +1 and -1 reach the same cell, and the forward half
+    is no half).  Returns (f [nz,ny,3,nx*cap], u6, vir), u6 and vir
+    counted once per pair (the totals of K1)."""
     nx, ny, nz = dims
     what = "lj_cell_forces_n3l"
     _check(r4, (nz, ny, 4, nx * cap), cap, what)
@@ -137,28 +138,12 @@ def lj_cell_forces_n3l(
     if r4.device.type == "cpu":
         return lj_cell_forces_n3l_reference(r4, **kw)
     _device_check(r4, what)
-    out = launch_lj_cells_n3l(r4, **kw)
+    out = launch_lj_cells(r4, **kw)
     lj_cell_forces_n3l.launches += 1
     return out
 
 
 lj_cell_forces_n3l.launches = 0
-
-
-def launch_lj_cells_n3l(r4, *, dims, cap, cell_len, eps24, sig2, shift6, rc2,
-                        compute_macro=True, parts=False):
-    """The launch of csrc/lj_cells_n3l.cu behind lj_cell_forces_n3l, on
-    checked inputs (f zeroed first: the kernel adds into it): (f, u6,
-    vir), or (f, part) with `parts`."""
-    nx, ny, nz = dims
-    P = _planes(r4, nx * cap)
-    return _launch(
-        "lj_cells_n3l", r4, 3, dims, cap,
-        lambda f, part: (
-            r4.data_ptr(), f.data_ptr(), part.data_ptr(), nx, ny, nz, cap, P,
-            *(float(c) for c in cell_len), float(eps24), float(sig2),
-            float(shift6), float(rc2), int(bool(compute_macro))),
-        compute_macro, zero=True, parts=parts)
 
 
 # -- K9: z bands, and the Gram form ---------------------------------------------

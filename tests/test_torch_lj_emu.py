@@ -5,7 +5,8 @@ tools/cuda_emu.h (tools/cuda_emu.py) and run through the port's own
 launch code (ops/cuda_lj.launch_lj_cells, launch_lj_cells_cw,
 launch_lj_cells_row) on CPU tensors, against the plain versions
 lj_cell_forces_reference, lj_cell_forces_cw_reference and
-lj_cell_forces_row_reference.
+lj_cell_forces_row_reference.  K8 (the TPU's half-shell variant) is
+K1's launch, so its cases run here as cases of K1.
 
 It checks what only the kernels do: the i compaction and the two- and
 four-group split of a warp (cells of 0, 1 and <= 16 molecules), the
@@ -22,7 +23,11 @@ and pairs within a coordinate ulp of rc in absolute coordinates near
 160 sigma.  K1 evaluates each pair once by the half shell and sends
 each warp's reactions to f by atomics: cap 32, 64 and 96 (blocks across
 cells) and cap 128 (a block is one cell, whose warps add reactions to
-the same slots), with cells of up to 110 molecules.  Tolerance: 1e-12 of
+the same slots), with cells of up to 110 molecules.  K8's cases add f32
+pairs within an ulp of rc, the RMM engine's own state
+(chip_smoke.cut_sim, 4^3 cells, sentinel fill) read in place, cap 96
+with three warps in the own cell, and 3x3x3 cells cut from the sparse
+scene (the smallest grid the half shell takes).  Tolerance: 1e-12 of
 max|F| and relative on u6 and the virial in f64, 1e-5 in f32.  Every
 case also holds the number of pairs inside the cutoff that the kernel
 evaluates (a launch with eps24 = 0 and shift6 = 1,
@@ -31,9 +36,10 @@ to the plain version's count (inside_pairs_reference), exactly: a j
 slot culled wrongly would lose its pairs there.  Two mutants of K1 must
 be caught: the own-cell test j > i turned into j != i (pairs twice),
 and the flush of the last, partial round of j slots dropped (reactions
-lost).  The shim runs a warp's lanes as fibers that switch only at
-barriers, so it cannot show a race between lanes; K1 adds its reactions
-with atomics or through shuffles and assumes no lockstep.  Scenes:
+lost), on K1's cases and on K8's.  The shim runs a warp's lanes as
+fibers that switch only at barriers, so it cannot show a race between
+lanes; K1 adds its reactions with atomics or through shuffles and
+assumes no lockstep.  Scenes:
 chip_smoke.lj_scene, cell edge 2.6 (5.0 at cap 128), rc 2.5.
 """
 import ctypes
@@ -53,6 +59,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from ls1_mardyn_tpu_torch.io.generators import cubic_grid  # noqa: E402
 from ls1_mardyn_tpu_torch.ops import _build, cuda_lj, lj_path  # noqa: E402
+from ls1_mardyn_tpu_torch.ops import cuda_lj_variants as V  # noqa: E402
 from ls1_mardyn_tpu_torch.ops.cells import CellGridSpec  # noqa: E402
 from ls1_mardyn_tpu_torch.scene import build_scene  # noqa: E402
 
@@ -155,28 +162,73 @@ def scene(name, dtype=torch.float64, planes=4):
     return r, dims, cap
 
 
-@pytest.mark.parametrize("case", ["sparse32", "sparse64", "full32", "near_rc",
-                                  "f32", "planes8", "cap96", "block128",
-                                  "small128_f32"])
-def test_k1_device_code_matches_plain(on_emu, case):
-    """K1 against its plain version: sparse cells (the split paths), cap
-    64, full cells, pairs within an ulp of rc, f32, the first 4 planes of
-    an 8-plane tensor read in place, cap 96 (blocks across cells), and
-    cap 128, where a block is one cell: cells of up to 110 molecules (all
-    four warps live) in f64, and of up to 40 with pairs within an ulp of
-    rc in f32."""
+def case_inputs(case):
+    """(r4, kw, lim) of a case: the scenes, f32, an 8-plane tensor, the
+    RMM state with the sentinel fill, cap 96 (3 chunks a cell, which the
+    band order does not divide: K1's order), and 3x3x3 cells cut from the
+    sparse scene as a periodic grid of their own."""
+    if case == "cap96":
+        counts = chip_smoke.np.random.default_rng(4).choice([0, 1, 17, 64],
+                                                             (3, 3, 4))
+        r = chip_smoke.lj_scene((4, 3, 3), 96, CL, counts, seed=4)
+        return r, dict(dims=(4, 3, 3), cap=96, cell_len=(CL,) * 3, **LJ), 1e-12
+    if case == "rmm_state":
+        sim = chip_smoke.cut_sim(32, torch.float64, "cpu", nd=4)
+        assert sim.sentinel and sim.state.planes.shape[2] == 8
+        kw = dict(dims=sim.spec.dims, cap=32, cell_len=sim.cell_len,
+                  eps24=sim.eps24, sig2=sim.sig2, shift6=sim.shift6, rc2=sim.rc2)
+        return sim.state.planes[:, :, :4, :], kw, 1e-12
+    if case == "sub3":
+        r4, kw, lim = case_inputs("sparse32")
+        r4 = chip_smoke.sub_block(r4, kw["cap"], 3, 3, 3)
+        return r4, dict(kw, dims=(3, 3, 3)), lim
+    name = case.split("_f32")[0] if case != "planes8" else "sparse32"
+    dtype = torch.float32 if case.endswith("_f32") else torch.float64
+    r, dims, cap = scene(name, dtype, planes=8 if case == "planes8" else 4)
+    kw = dict(dims=dims, cap=cap, cell_len=(CL,) * 3, **LJ)
+    return r[:, :, :4, :], kw, 1e-5 if dtype == torch.float32 else 1e-12
+
+
+def k1_inputs(case):
+    """(r4, kw, lim) of a K1 case, or with the prefix "k8_" of a K8 case
+    (case_inputs)."""
+    if case.startswith("k8_"):
+        return case_inputs(case.removeprefix("k8_"))
     name = case.removesuffix("_f32") if case.removesuffix("_f32") in SCENES \
         else "sparse32"
     dtype = torch.float32 if case.endswith("f32") else torch.float64
     r, dims, cap = scene(name, dtype, planes=8 if case == "planes8" else 4)
     r4 = r[:, :, :4, :]
     assert r4.is_contiguous() == (case != "planes8")
-    cl = (edge(name),) * 3
-    kw = dict(dims=dims, cap=cap, cell_len=cl, **LJ)
-    check_kernel(cuda_lj.launch_lj_cells, cuda_lj.lj_cell_forces_reference,
-                 (r4,), kw, 1e-5 if dtype == torch.float32 else 1e-12,
-                 dict(kernel="K1", dims=dims, cap=cap, cell_len=cl,
-                      rc2=LJ["rc2"]), halved=False)
+    kw = dict(dims=dims, cap=cap, cell_len=(edge(name),) * 3, **LJ)
+    return r4, kw, 1e-5 if dtype == torch.float32 else 1e-12
+
+
+K8_CASES = ["sparse32", "sparse64", "full32", "near_rc", "near_rc_f32",
+            "sparse32_f32", "planes8", "rmm_state", "cap96", "sub3"]
+
+
+@pytest.mark.parametrize("case", ["sparse32", "sparse64", "full32", "near_rc",
+                                  "f32", "planes8", "cap96", "block128",
+                                  "small128_f32"]
+                         + ["k8_" + c for c in K8_CASES])
+def test_k1_device_code_matches_plain(on_emu, case):
+    """K1 against its plain version: sparse cells (the split paths), cap
+    64, full cells, pairs within an ulp of rc, f32, the first 4 planes of
+    an 8-plane tensor read in place, cap 96 (blocks across cells), and
+    cap 128, where a block is one cell: cells of up to 110 molecules (all
+    four warps live) in f64, and of up to 40 with pairs within an ulp of
+    rc in f32.  K8's cases (k8_*) under K8's names for the plain version
+    and the count: K8's scenes, the RMM engine's state, cap 96 with three
+    warps in the own cell, and a 3x3x3 grid."""
+    r4, kw, lim = k1_inputs(case)
+    k8 = case.startswith("k8_")
+    plain = (V.lj_cell_forces_n3l_reference if k8
+             else cuda_lj.lj_cell_forces_reference)
+    check_kernel(cuda_lj.launch_lj_cells, plain, (r4,), kw, lim,
+                 dict(kernel="n3l" if k8 else "K1", dims=kw["dims"],
+                      cap=kw["cap"], cell_len=kw["cell_len"], rc2=kw["rc2"]),
+                 halved=False)
 
 
 # K3 cases that keep the double-sided walk
@@ -364,22 +416,26 @@ def emu_k1_mutants(tmp_path_factory):
     return libs
 
 
-def test_k1_mutants_caught(emu_libs, emu_k1_mutants, monkeypatch):
+# the cases each mutant test runs: K1's (cap 32, and cap 128 where a block
+# is one cell) and K8's
+MUTANT_CASES = {"k1": ("sparse32", "small128"),
+                "k8": ("k8_sparse32", "k8_full32", "k8_near_rc_f32")}
+
+
+@pytest.mark.parametrize("cases", list(MUTANT_CASES))
+def test_k1_mutants_caught(emu_libs, emu_k1_mutants, monkeypatch, cases):
     """The own-cell test j != i adds own-cell pairs twice: the count of a
     case with three or more close molecules in a cell differs.  Without
     the last flush the reactions of the last round are lost: the forces
-    differ.  The shipped kernel passes both checks on the same cases
-    (cap 32, and cap 128 where a block is one cell)."""
+    differ.  The shipped kernel passes both checks on the same cases."""
     libs = dict(emu_k1_mutants, tree=emu_libs["lj_cells"])
     caught = {"own_neq": set(), "no_flush": set()}
-    for case in ("sparse32", "small128"):
-        r4, dims, cap = scene(case)
-        cl = (edge(case),) * 3
-        kw = dict(dims=dims, cap=cap, cell_len=cl, **LJ)
+    for case in MUTANT_CASES[cases]:
+        r4, kw, lim = k1_inputs(case)
         want = cuda_lj.lj_cell_forces_reference(r4, compute_macro=False, **kw)[0]
-        n_want = cuda_lj.inside_pairs_reference(r4, kernel="K1", dims=dims,
-                                                cap=cap, cell_len=cl,
-                                                rc2=LJ["rc2"])
+        n_want = cuda_lj.inside_pairs_reference(
+            r4, kernel="K1", dims=kw["dims"], cap=kw["cap"],
+            cell_len=kw["cell_len"], rc2=kw["rc2"])
         scale = float(want.abs().max())
         for tag in ("tree", "own_neq", "no_flush"):
             monkeypatch.setattr(cuda_lj, "_lib", lambda name, lib=libs[tag]: lib)
@@ -387,7 +443,7 @@ def test_k1_mutants_caught(emu_libs, emu_k1_mutants, monkeypatch):
             _, part = cuda_lj.launch_lj_cells(
                 r4, parts=True, **dict(kw, eps24=0.0, sig2=0.0, shift6=1.0))
             bad = (cuda_lj.pairs_from_part(part, halved=False) != n_want
-                   or float((f - want).abs().max()) > 1e-12 * scale)
+                   or float((f - want).abs().max()) > lim * scale)
             if tag == "tree":
                 assert not bad, case
             elif bad:

@@ -6,7 +6,7 @@ launch code (ops/cuda_lj_variants.launch_lj_cells_zb,
 launch_lj_cells_lanej) on CPU tensors, against their plain versions
 lj_cell_forces_zb_reference (gram=False and True) and, for K7,
 lj_cell_forces_row_reference in cell-local mode on the cells and a
-one-cell periodic x halo (the view of RMMSimulation._row_views).
+one-cell periodic x halo (K4's j view in cell-local mode).
 
 Cases: the scenes of tests/test_torch_lj_emu.py (sparse cells of 0, 1 and
 up to 16 molecules, cap 64, full cells, pairs within an ulp of rc), f32,
@@ -38,10 +38,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-import chip_smoke  # noqa: E402
 from ls1_mardyn_tpu_torch.ops import cuda_lj  # noqa: E402
 from ls1_mardyn_tpu_torch.ops import cuda_lj_variants as V  # noqa: E402
-from test_torch_lj_emu import CL, LJ, assert_close, scene  # noqa: E402
+from test_torch_lj_emu import assert_close, case_inputs  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -89,28 +88,6 @@ def emu_lanej(tmp_path_factory):
 def use(monkeypatch, lib):
     """The port's launch code, loading `lib` for csrc/lj_cells_zb.cu."""
     monkeypatch.setattr(cuda_lj, "_lib", lambda name: lib)
-
-
-def case_inputs(case):
-    """(r4, kw, lim) of a case: K1's scenes, f32, an 8-plane tensor, the
-    RMM state with the sentinel fill, cap 96 (3 chunks a cell, which the
-    band order does not divide: K1's order)."""
-    if case == "cap96":
-        counts = chip_smoke.np.random.default_rng(4).choice([0, 1, 17, 64],
-                                                             (3, 3, 4))
-        r = chip_smoke.lj_scene((4, 3, 3), 96, CL, counts, seed=4)
-        return r, dict(dims=(4, 3, 3), cap=96, cell_len=(CL,) * 3, **LJ), 1e-12
-    if case == "rmm_state":
-        sim = chip_smoke.cut_sim(32, torch.float64, "cpu", nd=4)
-        assert sim.sentinel and sim.state.planes.shape[2] == 8
-        kw = dict(dims=sim.spec.dims, cap=32, cell_len=sim.cell_len,
-                  eps24=sim.eps24, sig2=sim.sig2, shift6=sim.shift6, rc2=sim.rc2)
-        return sim.state.planes[:, :, :4, :], kw, 1e-12
-    name = case.split("_f32")[0] if case != "planes8" else "sparse32"
-    dtype = torch.float32 if case.endswith("_f32") else torch.float64
-    r, dims, cap = scene(name, dtype, planes=8 if case == "planes8" else 4)
-    kw = dict(dims=dims, cap=cap, cell_len=(CL,) * 3, **LJ)
-    return r[:, :, :4, :], kw, 1e-5 if dtype == torch.float32 else 1e-12
 
 
 def kernel_count(r4, kw, gram):

@@ -1,14 +1,15 @@
-"""The kernel switches of the port's RMMSimulation against the JAX
-package's, f64 on the CPU (JAX in interpret mode).
+"""The port's RMMSimulation (one force path, kernel K1) against every
+kernel path of the JAX package's, f64 on the CPU (JAX in interpret
+mode).
 
 One JAX simulation per switch setting (row kernel, cw without n3l,
 lanej, n3l, zb, zb with gram), each switch set before the first force
-evaluation: the JAX engine traces its kernel once.  The port gets the
-same switches and the JAX engine's initial state (through
-ls1_mardyn_tpu_torch.interop), and both run 10 steps on an N = 1000
-scene of nd = 4 cells a side at cap 64, with one shift rebin (step 8).
-Per molecule id, r and v agree to atol 1e-10; T, p and Upot to rtol
-1e-10.
+evaluation: the JAX engine traces its kernel once.  The port's engine,
+which has no switches, starts from the JAX engine's initial state
+(through ls1_mardyn_tpu_torch.interop), and both run 10 steps on an
+N = 1000 scene of nd = 4 cells a side at cap 64, with one shift rebin
+(step 8).  Per molecule id, r and v agree to atol 1e-10; T, p and Upot
+to rtol 1e-10.
 """
 
 import jax.numpy as jnp
@@ -21,12 +22,9 @@ from ls1_mardyn_tpu.ops.cells import CellGridSpec as JaxSpec
 from ls1_mardyn_tpu.ops.rmm import RMMSimulation as JaxRMM
 from ls1_mardyn_tpu.scene import build_scene
 from ls1_mardyn_tpu_torch.interop import pair_params_from_numpy, rmm_state_from_numpy
-from ls1_mardyn_tpu_torch.io.generators import cubic_grid as port_cubic_grid
 from ls1_mardyn_tpu_torch.models.components import ComponentTable
-from ls1_mardyn_tpu_torch.ops import cuda_lj_variants as V
 from ls1_mardyn_tpu_torch.ops.cells import CellGridSpec
 from ls1_mardyn_tpu_torch.ops.rmm import RMMSimulation
-from ls1_mardyn_tpu_torch.state import MoleculeState
 
 from test_torch_rmm import _by_mid
 
@@ -37,7 +35,7 @@ torch.set_num_threads(1)
 RC, DT = 2.5, 0.002
 N, RHO, T, ND, CAP = 1000, 0.55, 1.0, 4, 64
 
-# the switches each case sets (the rest keep the JAX defaults)
+# the JAX engine's switches each case sets (the rest keep its defaults)
 SWITCHES = {
     "row": dict(cw=False),
     "cw": dict(cwn3l=False),
@@ -49,8 +47,8 @@ SWITCHES = {
 
 
 def _sims(switches):
-    """(JAX engine, port engine, box length) on the shared scene, both
-    with `switches` set and the port started from the JAX state."""
+    """(JAX engine, port engine, box length) on the shared scene, the
+    JAX engine with `switches` set and the port started from its state."""
     L = (N / RHO) ** (1.0 / 3.0)
     data = cubic_grid(N, [L, L, L], T, seed=3)
     mol, jpp, table, box = build_scene(data, cutoff=RC, dtype=jnp.float64)
@@ -65,9 +63,8 @@ def _sims(switches):
     sim = RMMSimulation(ptable, pp, box_t,
                         CellGridSpec(dims=(ND,) * 3, box=box_t, cap=CAP),
                         device="cpu", **kw)
-    for s in (jsim, sim):
-        for k, v in switches.items():
-            setattr(s, k, v)
+    for k, v in switches.items():
+        setattr(jsim, k, v)
     jsim.init_from_molecules(mol)
     st = jsim.state
     sim.state = rmm_state_from_numpy(
@@ -98,45 +95,3 @@ def test_rmm_switch_matches_jax(case):
     gj = jsim.run(10)
     gp = sim.run(10)
     _agree(gp, gj, sim.to_molecules(), jsim.to_molecules(), L)
-
-
-def _port_sim():
-    """The port's engine alone on the same scene, from its own init."""
-    L = (N / RHO) ** (1.0 / 3.0)
-    data = port_cubic_grid(N, [L, L, L], T, seed=3)
-    table = ComponentTable(data.components, cutoff=RC, lj_cutoff=RC)
-    mol = MoleculeState.from_numpy(r=data.r, v=data.v,
-                                   mid=data.mid.astype(np.int32),
-                                   dtype=torch.float64, device="cpu")
-    spec = CellGridSpec(dims=(ND,) * 3, box=(L,) * 3, cap=CAP)
-    sim = RMMSimulation(table, None, (L,) * 3, spec, dt=DT,
-                        target_temperature=T, rebin_every=8, device="cpu")
-    sim.init_from_molecules(mol)
-    return sim, L
-
-
-def test_rmm_switch_takes_effect_between_steps():
-    """The port is eager: a switch set between steps selects the kernel
-    of the next force evaluation.  K1 for 3 steps, then K8 (n3l) for 3,
-    against K1 for all 6 (the same forces to rounding), and the K8
-    plain version is what ran."""
-    sim_a, L = _port_sim()
-    sim_b, _ = _port_sim()
-    ga = sim_a.run(6)
-    sim_b.run(3)
-    sim_b.cw = False
-    sim_b.n3l = True
-    calls = []
-    orig = V.lj_cell_forces_n3l_reference
-
-    def spy(*a, **k):
-        calls.append(1)
-        return orig(*a, **k)
-
-    V.lj_cell_forces_n3l_reference = spy
-    try:
-        gb = sim_b.run(3)
-    finally:
-        V.lj_cell_forces_n3l_reference = orig
-    assert len(calls) == 3
-    _agree(gb, ga, sim_b.to_molecules(), sim_a.to_molecules(), L)

@@ -5,9 +5,9 @@ by side on one NVIDIA GPU.
         [--kernels K1,K3,K4,K7,K8,K9,K10] [--no-check TAG] ... [--reps 10]
         [--walk] [--gram-order]
 
-Builds csrc/lj_cells.cu (K1, and K3's half shell),
-csrc/lj_cells_cw.cu (K3), csrc/lj_cells_row.cu (K4), csrc/lj_cells_lanej.cu (K7),
-csrc/lj_cells_n3l.cu (K8), csrc/lj_cells_zb.cu (K9) and
+Builds csrc/lj_cells.cu (K1, and the launch of K8 and of K3's half
+shell), csrc/lj_cells_cw.cu (K3), csrc/lj_cells_row.cu (K4),
+csrc/lj_cells_lanej.cu (K7), csrc/lj_cells_zb.cu (K9) and
 csrc/lj_packed.cu (K10) of each variant
 (tools/kernel_variants.py: DIR a copy of ls1_mardyn_tpu_torch/csrc, e.g.
 a parent commit's from `git archive` or an edited copy, and optional
@@ -27,8 +27,8 @@ the full-width 1CLJ start state of chip_smoke.py (N = 4,194,304, f32):
   K1 argon, K8 argon  the RMM engine's planes at the start of the
                    benchmark cell lj_liquid_4m.rmm (chip_smoke.argon_rmm:
                    the argon example at rc 5.154, grid (36,36,36), cap
-                   128), without u6/virial, and K1 with it ("K1 argon
-                   u6/virial");
+                   128), without u6/virial (K8 through its wrapper), and
+                   K1 with it ("K1 argon u6/virial");
   K3 argon         the general path's layout of the same argon start on
                    its own grid, the benchmark cell lj_liquid_4m.general's
                    (chip_smoke.argon_general: (41,41,41) cap 128), with
@@ -38,10 +38,12 @@ the full-width 1CLJ start state of chip_smoke.py (N = 4,194,304, f32):
                    with u6/virial as that path runs it, and without;
   K4               the general path's layout and its one-cell x halo, with
                    u6/virial (the general path with cw off);
-  K4 on K1's grid  the RMM state through the view of its switch cw = False,
-                   without u6/virial;
-  K7               the same view (the switch lanej), without u6/virial;
-  K8               the RMM planes read in place, without u6/virial;
+  K4 on K1's grid  the RMM state with one periodic x halo cell a side
+                   (the j view of the JAX engine's row kernel), in
+                   cell-local mode, without u6/virial;
+  K7               the same view, without u6/virial;
+  K8               the RMM planes read in place through K8's wrapper
+                   (K1's launch), without u6/virial;
   K9, K9 gram      the RMM planes read in place, without u6/virial;
   K10              the RMM planes packed into pencils (chip_smoke.
                    packed_views), without u6/virial;
@@ -71,12 +73,13 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 import kernel_variants as kv  # noqa: E402
 
-# libraries and check phase of each kernel (K3's half shell is K1's launch)
+# libraries and check phase of each kernel (K8, and K3's half shell, are
+# K1's launch)
 KERNELS = {"K1": (("lj_cells",), cs.phase_k1),
            "K3": (("lj_cells_cw", "lj_cells"), cs.phase_k3),
            "K4": (("lj_cells_row",), cs.phase_k4),
            "K7": (("lj_cells_lanej",), cs.phase_k7),
-           "K8": (("lj_cells_n3l",), cs.phase_k8),
+           "K8": (("lj_cells",), cs.phase_k8),
            "K9": (("lj_cells_zb",), cs.phase_k9),
            "K10": (("lj_packed",), cs.phase_k10)}
 
@@ -106,7 +109,8 @@ def full_width_inputs(kernels):
                                     cuda_lj.lj_cell_forces_cw_reference,
                                     (r4.contiguous(),), fast, dict(half=True))
     V = cuda_lj_variants
-    r_i, r_j = rsim._row_views(r4)
+    r_i = r4.contiguous()
+    r_j = cs.x_halo(r_i, dims[0], cap)
     row_walk = dict(j_cells=cuda_lj._row_j_cells(r_j, dims=dims, cap=cap,
                                                  box=rsim.box, local_coords=True))
     row = dict(dims=dims, cap=cap, box=rsim.box, compute_macro=False, **lj)
