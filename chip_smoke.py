@@ -60,8 +60,11 @@ non-zero and never prints the result line):
            the f64 result (<= 5e-3, see phase_k4)
   K5       packed multi-site forces vs plain (F, M, Vi relative to their
            max, u6/uX/myRF relative; f32 <= 1e-5, f64 <= 1e-12): a
-           two-component mixture with all seven bodies, a screened
-           water-like scene at cap 160, multi-tile rows under z_halo
+           two-component mixture with all seven bodies (dipole-dipole
+           with the reaction field included), a screened water-like
+           scene at cap 160, multi-tile rows, each on the half shell,
+           and the multi-tile rows under z_halo (the double-sided
+           walk); half_launches must count all but the z_halo launches
   K6       dense multi-site forces vs plain (limits as K5): the mixture
            at cap 32 and 160, the screened scene, explicit y + z halo
            rows (bit-identical to the wrapped result)
@@ -143,8 +146,10 @@ non-zero and never prints the result line):
            state beside K1; the multi-site plain versions on a 2-row z
            slab, and at full width when that extrapolates to under 60 s;
            K5 and K6 also report the candidate tests their warp windows
-           walk (and PR 4's block windows), the ordered pairs inside the
-           cutoff, and the ptxas registers and spills of each precision
+           walk (and the block skeleton's windows), the pairs inside the
+           cutoff the site program runs on (each once on K5's half
+           shell), and the ptxas registers and spills of each
+           instantiation
   longrange-small  long-range drivers on the card vs on the CPU, f64, 20
            steps: the molten salt (6^3 ions) under ewald_method direct,
            pme and fmm (N^2 oracle); water-class N=4096 under
@@ -1154,21 +1159,27 @@ def phase_k6(device):
 
 
 def phase_k5(device):
-    """K5 vs its plain version: the mixture, the screened water-like
-    scene at cap 160, and multi-tile rows (> 128 molecules a row) under
-    z_halo with z-inhomogeneous counts (the inner z rows of a periodic
-    packed build against all of its rows as explicit halo rows)."""
+    """K5 vs its plain version: on the half shell the mixture, the
+    screened water-like scene at cap 160 and multi-tile rows (> 128
+    molecules a row, z-inhomogeneous counts); the same multi-tile rows
+    under z_halo (the inner z rows of a periodic packed build against
+    all of its rows as explicit halo rows: the double-sided walk).
+    half_launches must count every launch but the z_halo ones."""
     from ls1_mardyn_tpu_torch.ops.cells import CellGridSpec
     from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import (
         CudaMultiSitePackedPath, multisite_cell_forces_packed,
         multisite_cell_forces_packed_reference)
 
+    k5 = multisite_cell_forces_packed
+    k5.launches = k5.half_launches = 0
     for dtype, lim in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         errs = {}
-        for tag, kind, box, cap, alpha, thin in (
-                ("mix", "mix", 12.0, 32, 0.0, 0.0),
-                ("water_screened_cap160", "water", 12.0, 160, 0.9, 0.0),
-                ("multitile_z_halo", "mix", (36.0, 9.6, 12.0), 48, 0.0, 0.4)):
+        for tag, kind, box, cap, alpha, thin, zh in (
+                ("mix", "mix", 12.0, 32, 0.0, 0.0, False),
+                ("water_screened_cap160", "water", 12.0, 160, 0.9, 0.0, False),
+                ("multitile", "mix", (36.0, 9.6, 12.0), 48, 0.0, 0.4, False),
+                ("multitile_z_halo", "mix", (36.0, 9.6, 12.0), 48, 0.0, 0.4,
+                 True)):
             mol, table, boxt = ms_scene(kind, 1000 if thin == 0 else 3500, box,
                                         3.0, dtype, device, thin_upper_z=thin)
             spec = CellGridSpec.create(boxt.cpu().numpy(), 3.0, cap=cap)
@@ -1183,6 +1194,7 @@ def phase_k5(device):
                 check(int(counts.max()) > 128 and
                       int(counts[1].max()) != int(counts[-2].max()),
                       f"K5 multi-tile case: row counts {counts.tolist()}")
+            if zh:
                 r_i = r_i[1:-1].contiguous()
                 kw.update(nz=nz - 2, z_halo=True)
             got = multisite_cell_forces_packed(tbl, r_i, r_j, **kw)
@@ -1193,7 +1205,9 @@ def phase_k5(device):
             rel=json.dumps({k: f"{v:.2e}" for k, v in errs.items()}), limit=lim)
         check(max(errs.values()) <= lim,
               f"K5 disagrees with its plain version ({dtype}): {errs}")
-    say("K5", launches=multisite_cell_forces_packed.launches)
+    say("K5", launches=k5.launches, half_launches=k5.half_launches)
+    check((k5.launches, k5.half_launches) == (8, 6),
+          f"K5: {k5.half_launches} of {k5.launches} launches on the half shell")
 
 
 def scene_config(box, rc=RC):
@@ -1866,7 +1880,8 @@ def phase_multisite(device, smi):
     """This slice's path at full width: a 2CLJ+quadrupole fluid of
     N = 1,061,208 at rc = 6.2 through MDSimulation(force_mode="auto"),
     which must pick K5 (warm-up and a 16-step window), then the same
-    scene under "ms_dense" through K6 (3 steps)."""
+    scene under "ms_dense" through K6 (3 steps).  Returns the sims, their
+    kernels' launches and K5's launches on the half shell."""
     from ls1_mardyn_tpu_torch.driver import MDSimulation
     from ls1_mardyn_tpu_torch.ops.cuda_ms import multisite_cell_forces
     from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import (
@@ -1889,6 +1904,7 @@ def phase_multisite(device, smi):
         t_build = time.perf_counter() - t0
         q0 = sim.molecules().q.clone()
         multisite_cell_forces_packed.launches = 0
+        multisite_cell_forces_packed.half_launches = 0
         multisite_cell_forces.launches = 0
         eng.prepare_start()
         ms0 = timed_window(sim, warm)[0] if warm else 0.0
@@ -1898,12 +1914,17 @@ def phase_multisite(device, smi):
         check(sim.engine is eng, f"multisite/{mode}: cell capacity re-spec")
         check(got[key] == 1 + warm + win and sum(got.values()) == got[key],
               f"multisite/{mode}: launches {got} in {warm + win} steps")
+        half = multisite_cell_forces_packed.half_launches
+        check(half == got["K5"], f"multisite/{mode}: {half} of {got['K5']} K5 "
+              "launches on the half shell")
+        if key == "K5":
+            k5_half = half
         ms_state_report(f"multisite/{key}", sim, gv, n, q0, ms, smi, mem0,
                         mode=mode, construct_s=round(t_build, 2),
                         warm_ms_per_step=f"{ms0:.3f}", window_steps=win,
                         launches=json.dumps(got))
         sims[key], launches[key] = sim, got[key]
-    return sims, launches
+    return sims, launches, k5_half
 
 
 # operations of one in-cutoff UNORDERED pair per site-pair term, by body
@@ -1976,7 +1997,9 @@ def ptxas_report(name, log=None):
     (csrc/lj_warp.cuh) as "f32 macro vi gram" with its template flags,
     e.g. "f32 100" (u6/virial, no Vi, no Gram), the half shell's (K1's,
     also K3's half-shell branch and K8, in csrc/lj_cells.cu) and K10's
-    (csrc/lj_packed.cu) as "f32 macro"."""
+    (csrc/lj_packed.cu) as "f32 macro"; the multi-site kernel
+    (csrc/ms_pair.cuh) as "f32 half" (the half shell) or "f32 full" (the
+    double-sided walk)."""
     import re
 
     from ls1_mardyn_tpu_torch.ops import _build
@@ -1985,6 +2008,12 @@ def ptxas_report(name, log=None):
     for ln in (_build.build_log(name) if log is None else log).splitlines():
         if "Compiling entry function" in ln:
             ent = ln.split("'")[1]
+            ms = re.search(r"ms_kernelI([fd])Lb([01])E", ent)
+            if ms:
+                cur = ("f32 " if ms.group(1) == "f" else "f64 ") + (
+                    "half" if ms.group(2) == "1" else "full")
+                out[cur] = {}
+                continue
             warp = re.search(
                 r"(?:warp_cells|packed)_kernel(?:_half)?I([fd])((?:Lb[01]E)+)",
                 ent)
@@ -2021,15 +2050,17 @@ def _warp_cells(valid, cell, width):
 
 
 def ms_window_candidates(r_i, cell, nx, cap, tbl=None, width=32,
-                         valid_j=True):
+                         valid_j=True, half=False):
     """(i slot, j slot) tests the multi-site kernels' windows walk in one
     call on this state (csrc/ms_pair.cuh): per group of `width` i slots
     (32: a warp's window; 128: a block's, as PR 4's kernels walked), its
     valid slots times the j slots of cells lo-1 .. hi+1 of the 9
-    neighbour rows (wrapped rows, no halo rows).  Packed rows (K5) read
-    the j ranges from the cell-start table tbl; dense rows (K6) count the
-    valid j slots (valid_j: the warps stage valid slots only) or all cap
-    slots of a cell (PR 4's kernels tested every slot)."""
+    neighbour rows (wrapped rows, no halo rows); with `half` (K5's half
+    shell, packed rows) of the four forward rows and of the centre row
+    after the group's first slot.  Packed rows (K5) read the j ranges
+    from the cell-start table tbl; dense rows (K6) count the valid j
+    slots (valid_j: the warps stage valid slots only) or all cap slots
+    of a cell (the block skeleton tested every slot)."""
     valid = r_i[:, :, 3] > 0.5
     n, lo, hi = _warp_cells(valid, cell.long(), width)
     n = n.double()
@@ -2042,15 +2073,21 @@ def ms_window_candidates(r_i, cell, nx, cap, tbl=None, width=32,
         ext = torch.cat([occ[..., -1:], occ, occ[..., :1]], -1)
         # start of extended cell c (cell c-1 of the row) in valid j slots
         tbl = torch.nn.functional.pad(torch.cumsum(ext, -1), (1, 0))
+    from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import HALF_ROWS
+
+    # a packed group's first slot is valid where the group holds one
+    first = 2 * cap + width * torch.arange(lo.shape[-1], device=lo.device) + 1
     total = 0.0
-    for dz in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            tb = torch.roll(tbl, shifts=(-dz, -dy), dims=(0, 1)).long()
-            a0 = torch.gather(tb, 2, lo)
-            a1 = torch.where(wrap_hi, tb[..., nx + 1:nx + 2],
-                             torch.gather(tb, 2, torch.clamp(hi + 3, max=nx + 2)))
-            head = torch.where(wrap_hi, tb[..., nx + 2:nx + 3], 0)
-            total += float((n * (a1 - a0 + head)).sum())
+    for dz, dy in HALF_ROWS if half else [(dz, dy) for dz in (-1, 0, 1)
+                                          for dy in (-1, 0, 1)]:
+        tb = torch.roll(tbl, shifts=(-dz, -dy), dims=(0, 1)).long()
+        a0 = torch.gather(tb, 2, lo)
+        if half and (dz, dy) == (0, 0):
+            a0 = torch.maximum(a0, first)
+        a1 = torch.where(wrap_hi, tb[..., nx + 1:nx + 2],
+                         torch.gather(tb, 2, torch.clamp(hi + 3, max=nx + 2)))
+        head = torch.where(wrap_hi, tb[..., nx + 2:nx + 3], 0)
+        total += float((n * ((a1 - a0).clamp(min=0) + head)).sum())
     return int(round(total))
 
 
@@ -2109,7 +2146,7 @@ def k5_times(sim, key, smi):
                     grid=list(path.spec.dims), cap=path.spec.cap,
                     screen_alpha=path.screen_alpha,
                     **ms_walk_report("ms_packed", b5, r_i, cells, nx,
-                                     path.spec.cap, tbl))
+                                     path.spec.cap, tbl, half=True))
 
 
 def phase_times_ms(sims, smi):
@@ -2146,16 +2183,19 @@ def phase_times_ms(sims, smi):
     return out
 
 
-def ms_walk_report(lib, bound, r_i, cells, nx, cap, tbl=None):
+def ms_walk_report(lib, bound, r_i, cells, nx, cap, tbl=None, half=False):
     """What a K5/K6 call walks on this state: the (i, j) candidate tests
-    of the warp windows (and of PR 4's block windows, every j slot), the
-    ordered pairs inside the cutoff that the site program runs on (twice
-    the bound's unordered count), and the ptxas report of the library."""
+    of the warp windows (`half`: K5's half shell; and of the block
+    skeleton's windows, every j slot, double-sided), the pairs inside
+    the cutoff that the site program runs on (the bound's unordered count
+    on the half shell, twice it on the double-sided walk), and the ptxas
+    report of the library."""
     return dict(
-        window_candidates=ms_window_candidates(r_i, cells, nx, cap, tbl, 32),
+        window_candidates=ms_window_candidates(r_i, cells, nx, cap, tbl, 32,
+                                               half=half),
         pr4_window_candidates=ms_window_candidates(r_i, cells, nx, cap, tbl,
                                                    128, valid_j=False),
-        inside_ordered=2 * int(bound["inside"]),
+        site_program_pairs=(1 if half else 2) * int(bound["inside"]),
         ptxas=ptxas_report(lib))
 
 
@@ -2887,13 +2927,17 @@ def phase_longrange_small(device):
           and sim.engine._force_fn.screen_alpha == alpha > 0,
           "longrange-small/water: not K5 with SPME's screening")
     multisite_cell_forces_packed.launches = 0
+    multisite_cell_forces_packed.half_launches = 0
     with _AlphaSpy() as spy:
         compare_devices("longrange-small/water-ms_packed", water, device,
                         ("r", "v", "q", "L"))
     k5 = multisite_cell_forces_packed.launches
-    check(k5 == 21 and spy.seen == [alpha] * k5,
-          f"longrange-small/water: K5 launches {k5}, screen_alpha {set(spy.seen)}")
-    say("longrange-small/water-ms_packed", K5_launches=k5, screen_alpha=alpha)
+    half = multisite_cell_forces_packed.half_launches
+    check(k5 == 21 and spy.seen == [alpha] * k5 and half == k5,
+          f"longrange-small/water: K5 launches {k5} ({half} on the half "
+          f"shell), screen_alpha {set(spy.seen)}")
+    say("longrange-small/water-ms_packed", K5_launches=k5,
+        K5_half_launches=half, screen_alpha=alpha)
 
     def slab(dev):
         data, box = planar_slab_scene()
@@ -2964,7 +3008,8 @@ def phase_longrange(device, smi):
     mesh, order 6) and K5 with SPME's screen_alpha; a warm-up of 2 steps
     and a window of 8; each part of a step timed alone; then K5 held
     against its plain version at this path's shapes, with its bound.
-    Returns K5's launches in that run and its times there."""
+    Returns K5's launches in that run, its times there and its launches
+    on the half shell."""
     from ls1_mardyn_tpu_torch.driver import MDSimulation
     from ls1_mardyn_tpu_torch.ops.cuda_ms_packed import (
         CudaMultiSitePackedPath, multisite_cell_forces_packed)
@@ -2989,24 +3034,27 @@ def phase_longrange(device, smi):
           f"longrange: force path {type(path).__name__}")
     q0 = sim.molecules().q.clone()
     multisite_cell_forces_packed.launches = 0
+    multisite_cell_forces_packed.half_launches = 0
     with _AlphaSpy() as spy:
         eng.prepare_start()
         ms0 = timed_window(sim, 2)[0]
         ms, gv = timed_window(sim, 8)
     k5 = multisite_cell_forces_packed.launches
+    half = multisite_cell_forces_packed.half_launches
     check(sim.engine is eng, "longrange: cell capacity re-spec")
-    check(k5 == 11 and spy.seen == [alpha] * k5,
-          f"longrange: K5 launches {k5}, screen_alpha {set(spy.seen)}")
+    check(k5 == 11 and spy.seen == [alpha] * k5 and half == k5,
+          f"longrange: K5 launches {k5} ({half} on the half shell), "
+          f"screen_alpha {set(spy.seen)}")
     peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
     parts = longrange_parts(sim)
     ms_state_report(
         "longrange", sim, gv, n, q0, ms, smi, mem0, solver="SPME",
         alpha=f"{alpha:.6f}", mesh=solver.params.grid, order=solver.params.order,
         construct_s=round(t_build, 2), warm_ms_per_step=f"{ms0:.3f}",
-        window_steps=8, K5_launches=k5,
+        window_steps=8, K5_launches=k5, K5_half_launches=half,
         screen_alpha_of_K5=json.dumps(sorted(set(spy.seen))),
         run_peak_mem_GB=f"{peak:.3f}", parts_ms=json.dumps(parts))
-    return k5, k5_times(sim, "K5 water/SPME", smi)
+    return k5, k5_times(sim, "K5 water/SPME", smi), half
 
 
 def clustered_charges(n, box, seed=11):
@@ -3711,7 +3759,8 @@ def phase_nemd(device, smi):
     it; the host reads a step, and the counts inserted, released and
     deleted.  Two components: the multi-site path (K5); then K5 held
     against its plain version at this path's shapes, with its bound.
-    Returns K5's launches in the run and its times there."""
+    Returns K5's launches in the run, its times there and its launches on
+    the half shell."""
     from ls1_mardyn_tpu_torch.driver import MDSimulation
     from ls1_mardyn_tpu_torch.io.xml_config import PluginSpec
     from ls1_mardyn_tpu_torch.ops import cuda_ms_packed
@@ -3749,6 +3798,7 @@ def phase_nemd(device, smi):
               f"nemd: force path {type(path).__name__}")
         n0 = int(sim.engine.mol.valid.sum())
         cuda_ms_packed.multisite_cell_forces_packed.launches = 0
+        cuda_ms_packed.multisite_cell_forces_packed.half_launches = 0
         sim.engine.prepare_start()
         ms_warm, _ = timed_window(sim, warm)
         reads0 = md.reads + director.reads + sink.reads + dist.reads
@@ -3765,6 +3815,8 @@ def phase_nemd(device, smi):
     finally:
         os.chdir(here)
     k5 = cuda_ms_packed.multisite_cell_forces_packed.launches
+    half = cuda_ms_packed.multisite_cell_forces_packed.half_launches
+    check(half == k5, f"nemd: {half} of {k5} K5 launches on the half shell")
     check(md.inserted > 0 and md.released > 0 and sink.deleted > 0,
           f"nemd: counts {counts}")
     check(n1 == n0 - sink.deleted + md.inserted, f"nemd: N {n0} -> {n1}, {counts}")
@@ -3773,6 +3825,7 @@ def phase_nemd(device, smi):
     say("nemd", n_before=n0, n_after=n1, box=f"{L:.4f}", period=f"{period:.6f}",
         engine=type(sim.engine).__name__,
         path=type(sim.engine._force_fn).__name__, K5_launches=k5,
+        K5_half_launches=half,
         warm_steps=warm, warm_ms_per_step=f"{ms_warm:.3f}", window_steps=MUVT_WIN,
         ms_per_step_with_set=f"{ms_set:.3f}", ms_per_step_without=f"{ms_bare:.3f}",
         set_ms_per_step=f"{ms_set - ms_bare:.3f}",
@@ -3782,7 +3835,7 @@ def phase_nemd(device, smi):
         gpu=repr(smi), **rep)
     times = k5_times(sim, "K5 NEMD film", smi)
     say("nemd", seconds=round(time.perf_counter() - t0, 1))
-    return k5, times
+    return k5, times, half
 
 
 def main():
@@ -3817,7 +3870,9 @@ def main():
     sim_gen, launches_gen = phase_general(device, smi)
     launches.update(launches_gen)
     phase_multisite_cells(device, smi)
-    sims_ms, launches_ms = phase_multisite(device, smi)
+    # K5's launches on the half shell, per path of the kernels line
+    half = {}
+    sims_ms, launches_ms, half["K5"] = phase_multisite(device, smi)
     launches.update(launches_ms)
     times = phase_times(sim_rmm, sim_gen, smi)
     del sim_rmm, sim_gen
@@ -3826,14 +3881,16 @@ def main():
     phase_longrange_small(device)
     # this slice's path: K5 under SPME's screening, a record of its own
     # (its launches, times and bound all from the water path)
-    launches["K5 water"], times["K5 water"] = phase_longrange(device, smi)
+    launches["K5 water"], times["K5 water"], half["K5 water"] = phase_longrange(
+        device, smi)
     phase_longrange_solvers(device, smi)
     phase_ensembles_small(device)
     phase_nemd_small(device)
     # this slice's path: K3 on the muVT film, a record of its own
     launches["K3 muVT film"], times["K3 muVT film"] = phase_muvt(device, smi)
     # and K5 on the NEMD film, a record of its own
-    launches["K5 NEMD film"], times["K5 NEMD film"] = phase_nemd(device, smi)
+    launches["K5 NEMD film"], times["K5 NEMD film"], half["K5 NEMD film"] = \
+        phase_nemd(device, smi)
     kernels = []
     for key, (name, src, tpu) in {
             **KERNELS, "K5 water": (KERNELS["K5"][0] + " (water, SPME screen_alpha)",
@@ -3846,6 +3903,7 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu, "engine_caller": key not in NO_ENGINE,
                         "launches": launches[key],
+                        **({"half_launches": half[key]} if key in half else {}),
                         **times[key], "library_ms": None})
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,8 +12,9 @@
 // rows, no z shift); y and otherwise z wrap with -+by / -+bz.
 //
 // A block is one 128-molecule i tile of a row; tiles at or beyond
-// ceil(row count / 128) write zeros.  A warp's covering cells
-// [c_lo, c_hi] (warp min/max of the cell plane over its valid slots)
+// ceil(row count / 128) write zeros (on the half shell only their rows
+// of part: the output was zeroed before the launch).  A warp's covering
+// cells [c_lo, c_hi] (warp min/max of the cell plane over its valid slots)
 // give, per neighbour row, the EXACT j range of cells c_lo-1 .. c_hi+1:
 // [tbl[c_lo], tbl[c_hi+3]), or up to the row end plus the head range
 // [0, tbl[nx+2]) (the right wrap halo) when c_hi >= nx-1.  The TPU
@@ -23,6 +24,16 @@
 // visited once (a grid of >= 3 cells per axis with a cell edge >= rc
 // leaves the cutoff alone to pick the one image that is near).  The
 // self pair is j == i + 2*cap on the centre row.
+//
+// Without z halo rows the kernel takes the half shell (ms_pair.cuh): the
+// centre row from the warp's first valid i slot on (j after i) plus the
+// right wrap halo, and the four forward rows whole, each pair once with
+// its reaction added to j's slot.  A j slot q of a row maps back to its
+// packed slot: q - 2*cap in the row part, q itself in the right wrap
+// halo (cell 0's first slots), q - 4*cap + tbl[nx+1] in the left wrap
+// halo (the row's last slots).  With z halo rows the reactions would
+// land on rows of another device, so that layout keeps the double-sided
+// walk.
 //
 // The bodies, the skeleton, what bounds the kernel and its design are
 // ms_pair.cuh's.
@@ -62,6 +73,20 @@ struct PackedRows {
             wrap_hi ? tb[nx + 1] : tb[c_hi + 3], 0, wrap_hi ? tb[nx + 2] : 0,
             sy, sz, (dz == 0 && dy == 0) ? 2 * cap : msk::NO_SELF};
   }
+
+  // the output offset (plane 0) of j slot q of neighbour row (dz, dy);
+  // half shell only (no z halo rows)
+  __device__ __forceinline__ long long j_out(int z, int y, int dz, int dy,
+                                             int q) const {
+    const long long jrow =
+        (long long)msk::wrap(z + dz, nz) * ny + msk::wrap(y + dy, ny);
+    int slot = q - 2 * cap;  // the row part
+    if (q < cap)  // the right wrap halo: cell 0, the row's first slots
+      slot = q;
+    else if (q < 2 * cap)  // the left wrap halo: cell nx-1, its last slots
+      slot = q - 4 * cap + tbl[jrow * (nx + 3) + nx + 1];
+    return jrow * msk::NOUT * W + slot;
+  }
 };
 
 template <typename T>
@@ -72,16 +97,22 @@ int run(const void* tbl, const void* ri, const void* rj, void* out, void* part,
         void* stream) {
   const PackedRows<T> rows{(const T*)rj, (const int*)tbl, Wp, nx, ny, nz, cap,
                            P, Wjp, cell_plane, zhalo, T(by), T(bz)};
-  return msk::launch<T>(ri, out, part, tab, terms, ntab, nterms, P, rows,
-                        Wp / msk::TI, ny, nz, rc2, rc2lj, alpha, K, stream);
+  if (zhalo)
+    return msk::launch<T, false>(ri, out, part, tab, terms, ntab, nterms, P,
+                                 rows, Wp / msk::TI, ny, nz, rc2, rc2lj, alpha,
+                                 K, stream);
+  return msk::launch<T, true>(ri, out, part, tab, terms, ntab, nterms, P, rows,
+                              Wp / msk::TI, ny, nz, rc2, rc2lj, alpha, K,
+                              stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int ms_packed_num_blocks(int Wp, int ny, int nz) {
-  return Wp / msk::TI * ny * nz;
+// rows of part: one a block (z halo rows), one a warp (the half shell)
+int ms_packed_num_blocks(int Wp, int ny, int nz, int zhalo) {
+  return Wp / msk::TI * ny * nz * (zhalo ? 1 : msk::NW);
 }
 
 int ms_packed_f32(const void* tbl, const void* ri, const void* rj, void* out,

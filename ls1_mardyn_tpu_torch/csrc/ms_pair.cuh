@@ -6,7 +6,8 @@
 // i tiles are live, the cell of an i slot, and for each of the 9
 // (dz, dy) neighbour rows and a covering cell range [c_lo, c_hi] the j
 // row, its j slot ranges for cells c_lo-1 .. c_hi+1, its image shift and
-// the self-pair offset.
+// the self-pair offset (and, for the half shell, where a j slot's
+// reaction goes in the output).
 //
 // The function (the TPU kernels' _pair_physics,
 // ls1_mardyn_tpu/ops/pallas_multisite.py:61): for every occupied i slot
@@ -15,8 +16,27 @@
 // pairs count where |drm|^2 < rc2_lj, electrostatic ones where
 // |drm|^2 < rc2 (molecule-based cutoff, as ls1).  Per slot: F, torque
 // M = sum site offset x f + the orientation torques, and
-// Vi = 0.5 drm (.) f; per block the sums of u6, uX and myRF, halved
-// because every pair is seen from both sides.
+// Vi = 0.5 drm (.) f; the sums of u6, uX and myRF.
+//
+// Two walks (the template flag HALF):
+//   * the double-sided walk (K6, and K5 with explicit z halo rows): each
+//     i slot meets all 9 neighbour rows, so every pair is evaluated from
+//     both sides; the energy sums are halved, one partial row a block;
+//   * the half shell (K5 without z halo rows, Newton's third law): each
+//     in-cutoff molecule pair is evaluated once, from the i side; j gets
+//     -F, the same 0.5 drm (.) f virial share as i, and its torque by the
+//     pair's angular momentum balance, M_j = -(M_i + drm x F).  Each body
+//     of potforce.h is a rotation-invariant pair energy, so its torques
+//     sum to zero about any point: the balance equals the sum over the
+//     terms of d_j x (-f) plus j's orientation torque (ls1's m2), and
+//     costs 9 operations a pair and no registers in the term loop (the
+//     per-term sum held 8 more there: 32 B of spills at 6 blocks an SM
+//     and 8.17 ms against 7.37 on the benchmark's CO2 state, PERF.md).  The warp walks the forward rows
+//     (dz, dy) = (0, +1), (+1, -1), (+1, 0), (+1, +1) whole, and the centre
+//     row only for j after i in packed order plus the right wrap halo
+//     (never the left one): with >= 3 cells or rows an axis that visits
+//     every unordered pair once.  The energy sums are whole, one
+//     partial row a warp.
 //
 // The site pairs come as a "site-pair program" built on the host
 // (ops/cuda_ms.py: MSMeta.terms): one row per (body, site a, site b)
@@ -71,9 +91,20 @@
 //     leaves the owner's round total in the first lane of its run; the
 //     owner lane fetches it by one shuffle and adds it to its F, M, Vi in
 //     registers.  u6, uX and myRF go to the evaluating lane's sums (they
-//     are only summed over the block).  No atomics: every sum is taken in
-//     an order fixed by the inputs, so the result is deterministic, and
-//     explicit halo rows reproduce the wrapped result bit for bit;
+//     are only summed over the block or the warp).  The double-sided walk
+//     has no atomics: every sum is taken in an order fixed by the inputs,
+//     so its result is deterministic, and explicit halo rows reproduce
+//     the wrapped result bit for bit;
+//   * reactions (half shell): the lanes of a round that hold the same j
+//     are grouped by __match_any_sync; the group's lowest lane gathers
+//     the others' 9 sums by shuffles and adds them with plain adds to the
+//     warp's reaction row [9][CH] of the chunk in shared memory (one
+//     writer per j a round, no shared-memory atomics: on sm_90 a float
+//     atomicAdd there is a compare-and-swap loop).  At the chunk's end
+//     the warp adds its row to the output by global float atomics (a
+//     native reduction), skipping zeros; the i sums reach the output the
+//     same way at the end, so the output is zeroed before the launch and
+//     its last bits vary from run to run;
 //   * |drm|^2 is formed exactly as the plain PyTorch versions form it,
 //     ((dx*dx + dy*dy) + dz*dz) with no FMA contraction, in the test and
 //     again in the evaluation, so both put every pair on the same side of
@@ -90,7 +121,7 @@
 //     2.5.  exp and erfc of the screened charge pair are libdevice's; no
 //     fast-math build;
 //   * registers: __launch_bounds__ asks for 6 blocks an SM in f32 (ptxas:
-//     80 registers, no spills); f64 takes what it needs (no spills).
+//     80 registers, no spills, both walks); f64 takes what it needs.
 
 #pragma once
 
@@ -261,10 +292,12 @@ __device__ __forceinline__ void quad_quad(V3<T> dr, T invd, T inv, V3<T> ei,
   m1 = (-pTi) * cross(ei, dr) - pG * cross(ei, ej);
 }
 
-// Sums of one molecule pair: F, M, Vi on i and the unhalved energies.
+// Sums of one molecule pair: F, M, Vi on i, (half shell) the torque Mj
+// on j, and the unhalved energies.
 template <typename T>
 struct Acc {
   V3<T> F{T(0), T(0), T(0)}, M{T(0), T(0), T(0)}, V{T(0), T(0), T(0)};
+  V3<T> Mj{T(0), T(0), T(0)};
   T u6 = T(0), uX = T(0), rf = T(0);
 };
 
@@ -287,7 +320,8 @@ __device__ __forceinline__ T com_sep(const T* si, const T* sj, V3<T>& drm) {
 // Every term of the site-pair program for the ordered molecule pair
 // (i, j): si points at the i slot's plane 0 in shared memory (plane
 // stride TI), sj at the j slot's (plane stride CH); kk = ci*K + cj.
-template <typename T>
+// With HALF also j's torque, by the pair's angular momentum balance.
+template <bool HALF, typename T>
 __device__ __forceinline__ void molecule_pair(const T* si, const T* sj,
                                               V3<T> drm, bool mlj, bool mel,
                                               int kk, const int* terms,
@@ -377,6 +411,7 @@ __device__ __forceinline__ void molecule_pair(const T* si, const T* sj,
                       T(0.5) * drm.z * f.z};
     a.uX += u;
   }
+  if constexpr (HALF) a.Mj = -(a.M + cross(drm, a.F));  // j's torque
 }
 
 // What a row functor returns for neighbour row (dz, dy) and a covering
@@ -384,7 +419,9 @@ __device__ __forceinline__ void molecule_pair(const T* si, const T* sj,
 // ranges [a0, a1) and [b0, b1) (cells c_lo-1 .. c_hi+1), the image shift
 // of its y and z, and the self-pair offset (j == i + self_off on the
 // centre row; NO_SELF elsewhere).  A slot of a range may be empty
-// (valid plane 0).
+// (valid plane 0).  A functor that takes the half shell also answers
+// j_out(z, y, dz, dy, q): the output offset (plane 0) of j slot q of
+// that row, where its reactions go.
 template <typename T>
 struct JRow {
   const T* p;
@@ -410,19 +447,23 @@ __device__ __forceinline__ void unpack9(const Acc<T>& a, T* v) {
 
 // One warp's staged chunk of n valid j slots (row indices jidx) against
 // its 32 i slots.  Test, list, then the flattened list 32 pairs at a
-// time; own[9] are this lane's slot sums, e[3] its energy sums.
-template <typename T>
+// time; own[9] are this lane's slot sums, e[3] its energy sums.  The
+// double-sided walk skips jidx == self_j (the self pair); the half shell
+// skips jidx <= self_j (j not after i on the centre row; INT_MIN
+// elsewhere) and adds each pair's reaction to the warp's reaction row
+// react[9][CH] of the chunk.
+template <bool HALF, typename T>
 __device__ __forceinline__ void warp_chunk(
     const T* s_i, const T* s_j, const int* jidx, unsigned char* s_list,
     const int* s_terms, const T* s_tab, const Phys<T>& ph, int n, int self_j,
-    bool vi, T* own, T* e) {
+    bool vi, T* own, T* e, T* react) {
   const int t = threadIdx.x, lane = t & 31, w0 = t - lane;
   unsigned char* mine = s_list + t * LSTR;
   int cnt = 0;
   if (vi) {
     const T* si = s_i + t;
     for (int q = 0; q < n; ++q) {
-      if (jidx[q] == self_j) continue;
+      if (HALF ? jidx[q] <= self_j : jidx[q] == self_j) continue;
       V3<T> drm;
       const T com2 = com_sep(si, s_j + q, drm);
       if (com2 < ph.rc2lj || com2 < ph.rc2) mine[cnt++] = (unsigned char)q;
@@ -451,18 +492,42 @@ __device__ __forceinline__ void warp_chunk(
     const bool act = f < total;
     T v[9];
     Acc<T> a;
+    int q = 0;
     if (act) {
-      const int q = s_list[(w0 + o) * LSTR + (f - eo)];
+      q = s_list[(w0 + o) * LSTR + (f - eo)];
       const T* si = s_i + w0 + o;
       const T* sj = s_j + q;
       V3<T> drm;
       const T com2 = com_sep(si, sj, drm);
       const int kk = to_int(si[4 * TI]) * ph.K + to_int(sj[4 * CH]);
-      molecule_pair(si, sj, drm, com2 < ph.rc2lj, com2 < ph.rc2, kk, s_terms,
-                    s_tab, ph, a);
+      molecule_pair<HALF>(si, sj, drm, com2 < ph.rc2lj, com2 < ph.rc2, kk,
+                          s_terms, s_tab, ph, a);
       e[0] += a.u6;
       e[1] += a.uX;
       e[2] += a.rf;
+    }
+    if constexpr (HALF) {
+      // j's reaction: -F, its torque, the same virial share
+      T rj[9] = {-a.F.x, -a.F.y, -a.F.z, a.Mj.x, a.Mj.y, a.Mj.z,
+                 a.V.x, a.V.y, a.V.z};
+      // the lanes that hold the same j (an inactive lane is a group of
+      // its own); the lowest gathers the others' sums
+      const unsigned grp = __match_any_sync(FULL, act ? q : CH + lane);
+      const bool lead = act && (grp & ((1u << lane) - 1u)) == 0u;
+      unsigned rest = lead ? grp & (grp - 1u) : 0u;
+      while (__any_sync(FULL, rest != 0u)) {
+        const int src = rest ? __ffs(rest) - 1 : lane;
+#pragma unroll
+        for (int k = 0; k < 9; ++k) {
+          const T x = __shfl_sync(FULL, rj[k], src);
+          if (rest) rj[k] += x;
+        }
+        rest &= rest - 1u;
+      }
+      if (lead)
+#pragma unroll
+        for (int k = 0; k < 9; ++k) react[k * CH + q] += rj[k];
+      __syncwarp();  // the next round's leader of this j reads the sum
     }
     unpack9(a, v);
     // suffix sums over the run of lanes of one owner (inactive: owner 32)
@@ -497,8 +562,11 @@ inline size_t smem_bytes(int P, int ntab, int nterms, size_t elem) {
 }
 
 // Forces of the i tile blockIdx.x of row (blockIdx.z, blockIdx.y):
-// ri / out are [nz, ny, P | NOUT, W]; part[block][3] the halved sums.
-template <typename T, typename Rows>
+// ri / out are [nz, ny, P | NOUT, W].  The double-sided walk writes out
+// and part[block][3], the halved energy sums; the half shell adds to out,
+// which the caller zeroed, and writes part[block * NW + warp][3], the
+// whole sums of each warp's pairs.
+template <typename T, bool HALF, typename Rows>
 __global__ void __launch_bounds__(TI, sizeof(T) == 4 ? MIN_BLOCKS_F32 : 1)
 ms_kernel(const T* __restrict__ ri, T* __restrict__ out, T* __restrict__ part,
           const T* __restrict__ tab_g, const int* __restrict__ terms_g,
@@ -512,6 +580,8 @@ ms_kernel(const T* __restrict__ ri, T* __restrict__ out, T* __restrict__ part,
       reinterpret_cast<unsigned char*>(s_terms + ph.nterms * TERM_INTS);
   __shared__ int s_jidx[NW][CH];
   __shared__ T red[3][NW];
+  // the warps' reaction rows [9][CH] (half shell)
+  __shared__ T s_react[HALF ? NW * 9 * CH : 1];
 
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
   const int tile = blockIdx.x, y = blockIdx.y, z = blockIdx.z;
@@ -522,9 +592,13 @@ ms_kernel(const T* __restrict__ ri, T* __restrict__ out, T* __restrict__ part,
   T* o = out + row * NOUT * W + s;
 
   if (!rows.tile_live(z, y, tile)) {  // uniform over the block
-    if (s < W)
-      for (int p = 0; p < NOUT; ++p) o[(long long)p * W] = T(0);
-    if (t < 3) part[3 * blk + t] = T(0);
+    if constexpr (HALF) {
+      if (t < 3 * NW) part[3 * NW * blk + t] = T(0);
+    } else {
+      if (s < W)
+        for (int p = 0; p < NOUT; ++p) o[(long long)p * W] = T(0);
+      if (t < 3) part[3 * blk + t] = T(0);
+    }
     return;
   }
   for (int k = t; k < ntab; k += TI) s_tab[k] = tab_g[k];
@@ -548,12 +622,29 @@ ms_kernel(const T* __restrict__ ri, T* __restrict__ out, T* __restrict__ part,
   T own[9] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
   T e[3] = {T(0), T(0), T(0)};
   T* s_jw = s_j + (size_t)w * P * CH;
+  T* react = s_react + (HALF ? w * 9 * CH : 0);
   if (w_lo <= w_hi) {  // uniform over the warp: it holds a valid slot
-    for (int k = 0; k < 9; ++k) {
-      const JRow<T> jr = rows.row(z, y, k / 3 - 1, k % 3 - 1, w_lo, w_hi);
+    int s_first = 0;
+    if constexpr (HALF) {
+      s_first = __reduce_min_sync(FULL, vi ? s : INT_MAX);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) react[k * CH + lane] = T(0);
+    }
+    // the half shell: the centre row (k = 4) and the forward rows 5..8
+    for (int k = HALF ? 4 : 0; k < 9; ++k) {
+      const int dz = k / 3 - 1, dy = k % 3 - 1;
+      const JRow<T> jr = rows.row(z, y, dz, dy, w_lo, w_hi);
       for (int r = 0; r < 2; ++r) {
         const int j1 = r ? jr.b1 : jr.a1;
         int src = r ? jr.b0 : jr.a0;
+        int self_j = s + jr.self_off;
+        if constexpr (HALF) {
+          // centre row: the row part after the warp's first i (the left
+          // wrap halo lies before it), j after i; the right wrap halo whole
+          const bool centre = jr.self_off != NO_SELF && r == 0;
+          if (centre) src = max(src, s_first + jr.self_off + 1);
+          self_j = centre ? s + jr.self_off : INT_MIN;
+        }
         while (src < j1) {  // uniform over the warp
           // stage the next (up to) CH valid j slots from src on, compacted
           __syncwarp();  // the last chunk is read
@@ -580,32 +671,56 @@ ms_kernel(const T* __restrict__ ri, T* __restrict__ out, T* __restrict__ part,
             n += take;
           }
           __syncwarp();
-          warp_chunk(s_i, s_jw, s_jidx[w], s_list, s_terms, s_tab, ph, n,
-                     s + jr.self_off, vi, own, e);
+          warp_chunk<HALF>(s_i, s_jw, s_jidx[w], s_list, s_terms, s_tab, ph,
+                           n, self_j, vi, own, e, react);
+          if constexpr (HALF) {  // the chunk's reactions to the output
+            if (lane < n) {
+              T* oj = out + rows.j_out(z, y, dz, dy, s_jidx[w][lane]);
+#pragma unroll
+              for (int p = 0; p < 9; ++p) {
+                const T v = react[p * CH + lane];
+                if (v != T(0)) atomicAdd(oj + (long long)p * W, v);
+                react[p * CH + lane] = T(0);
+              }
+            }
+          }
         }
       }
     }
-  }
-  if (s < W) {
+    if constexpr (HALF) {
+      // the i sums, and this warp's row of part
 #pragma unroll
-    for (int p = 0; p < 9; ++p) o[(long long)p * W] = own[p];
-    o[9LL * W] = T(0);
+      for (int p = 0; p < 9; ++p)
+        if (own[p] != T(0)) atomicAdd(o + (long long)p * W, own[p]);
+      const T u[3] = {warp_sum(e[0]), warp_sum(e[1]), warp_sum(e[2])};
+      if (lane == 0)  // warp_sum leaves the total in lane 0
+        for (int c2 = 0; c2 < 3; ++c2) part[3 * (NW * blk + w) + c2] = u[c2];
+    }
+  } else if constexpr (HALF) {
+    if (lane < 3) part[3 * (NW * blk + w) + lane] = T(0);
   }
-  // block sums of the halved energies
-  T u[3] = {warp_sum(T(0.5) * e[0]), warp_sum(T(0.5) * e[1]),
-            warp_sum(T(0.5) * e[2])};
-  if (lane == 0)
-    for (int c2 = 0; c2 < 3; ++c2) red[c2][w] = u[c2];
-  __syncthreads();
-  if (t < 3) {
-    T sum = T(0);
-    for (int k = 0; k < NW; ++k) sum += red[t][k];
-    part[3 * blk + t] = sum;
+  if constexpr (!HALF) {
+    if (s < W) {
+#pragma unroll
+      for (int p = 0; p < 9; ++p) o[(long long)p * W] = own[p];
+      o[9LL * W] = T(0);
+    }
+    // block sums of the halved energies
+    T u[3] = {warp_sum(T(0.5) * e[0]), warp_sum(T(0.5) * e[1]),
+              warp_sum(T(0.5) * e[2])};
+    if (lane == 0)
+      for (int c2 = 0; c2 < 3; ++c2) red[c2][w] = u[c2];
+    __syncthreads();
+    if (t < 3) {
+      T sum = T(0);
+      for (int k = 0; k < NW; ++k) sum += red[t][k];
+      part[3 * blk + t] = sum;
+    }
   }
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch.
-template <typename T, typename Rows>
+template <typename T, bool HALF = false, typename Rows>
 int launch(const void* ri, void* out, void* part, const void* tab,
            const void* terms, int ntab, int nterms, int P, Rows rows,
            int ntiles, int ny, int nz, double rc2, double rc2lj, double alpha,
@@ -613,7 +728,7 @@ int launch(const void* ri, void* out, void* part, const void* tab,
   const Phys<T> ph{T(rc2), T(rc2lj), T(alpha),
                    T(2.0 * alpha / 1.7724538509055160273), K, nterms};
   const size_t smem = smem_bytes(P, ntab, nterms, sizeof(T));
-  auto kern = ms_kernel<T, Rows>;
+  auto kern = ms_kernel<T, HALF, Rows>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);

@@ -17,8 +17,8 @@ pre-shifted by -+Lx: [nz(+2), ny(+2), P, (nx+2)*cap]; with z_halo /
 y_halo it carries one explicit halo row per side in z / y.  The output
 keeps the JAX layout [nz, ny, 10, nx*cap]: planes 0-8 are F, M and Vi
 per slot; plane 9 (the TPU kernel's one-hot scalar lanes) is zero, and
-u6, uX and myRF come back as 0-d tensors, halved for double-sided
-counting.
+u6, uX and myRF come back as 0-d tensors (K6 evaluates every pair from
+both sides and halves them).
 
 Both multi-site kernels (K5 in ops/cuda_ms_packed.py) evaluate one
 "site-pair program": the list of (interaction body, site a, site b)
@@ -390,7 +390,7 @@ _ARGTYPES = {
     # cell_plane zhalo; by bz rc2 rc2lj alpha; K ntab nterms; stream
     "ms_packed": [_VP] * 7 + [_CI] * 9 + [_CD] * 5 + [_CI] * 3 + [_VP],
 }
-_NB_ARGS = {"ms_dense": 4, "ms_packed": 3}
+_NB_ARGS = {"ms_dense": 4, "ms_packed": 4}
 
 
 def type_lib(lib, name):
@@ -413,16 +413,17 @@ def _lib(name):
 
 
 def launch(name, r_i, out_shape, nb_args, args, *, meta, box, rc2, rc2_lj,
-           screen_alpha):
-    """Allocate the output and the per-block partial sums, launch
-    csrc/<name>.cu on PyTorch's current stream, check the status;
-    returns (out, u6, uX, myRF).  args(out, part, tab, terms) gives the
-    entry point's pointer and layout arguments before the physical
-    constants."""
+           screen_alpha, zero=False):
+    """Allocate the output (zeroed where the kernel adds to it) and the
+    partial sums (<name>_num_blocks rows), launch csrc/<name>.cu on
+    PyTorch's current stream, check the status; returns (out, u6, uX,
+    myRF).  args(out, part, tab, terms) gives the entry point's pointer
+    and layout arguments before the physical constants."""
     lib = _lib(name)
     dtype, dev = r_i.dtype, r_i.device
     tab, terms = meta.device_program(dtype, dev)
-    out = torch.empty(out_shape, dtype=dtype, device=dev)
+    out = (torch.zeros if zero else torch.empty)(out_shape, dtype=dtype,
+                                                 device=dev)
     nb = getattr(lib, name + "_num_blocks")(*nb_args)
     part = torch.empty((nb, 3), dtype=dtype, device=dev)
     fn = getattr(lib, name + ("_f32" if dtype == torch.float32 else "_f64"))

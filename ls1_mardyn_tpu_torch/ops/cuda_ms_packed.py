@@ -22,6 +22,16 @@ cells c-1..c+1 of the 9 neighbour rows: [tbl[c], tbl[c+3]), or for
 c = nx-1 [tbl[nx-1], tbl[nx+1]) plus the head [0, tbl[nx+2]).  The
 self pair is j == i + 2*cap on the centre row.  Physics and outputs are
 K6's (ops/cuda_ms.py); the output is [nz, ny, 10, Wp].
+
+Without explicit z halo rows (ms_half_shell) K5 evaluates each molecule
+pair inside the cutoff once (Newton's third law): a molecule meets the
+four forward rows (dz, dy) = (0, +1), (+1, -1), (+1, 0), (+1, +1) and,
+in its own row, the molecules after it in packed order and the right
+wrap halo (never the left one); j receives -F, the same virial share
+and its torque from the pair's angular momentum balance,
+M_j = -(M_i + drm x F) (every body is a rotation-invariant pair
+energy).  With z halo rows the reactions would land on rows the caller
+does not own, so that layout keeps the double-sided walk.
 """
 
 from __future__ import annotations
@@ -47,6 +57,9 @@ from ls1_mardyn_tpu_torch.ops.ms_path import CudaMultiSitePath
 from ls1_mardyn_tpu_torch.state import Macroscopic, MoleculeState
 
 TI = 128  # i-tile width of the packed rows (Wp is a multiple)
+# (dz, dy) of the rows the half shell walks: the centre row (j after i)
+# and the four forward rows
+HALF_ROWS = [(0, 0), (0, 1), (1, -1), (1, 0), (1, 1)]
 JW = 128  # j-row width quantum (the JAX layout's: rows compare bit for bit)
 
 
@@ -204,18 +217,42 @@ def pack_dense_rows(g, nx: int, cap: int, Lx: float, cell_plane: int,
 
 # -- K5 -------------------------------------------------------------------------
 
+def ms_half_shell(z_halo) -> bool:
+    """Whether K5 walks the half shell (each in-cutoff pair once, the
+    reaction added to j): wherever the j rows carry no explicit z halo
+    rows.  The wrapper already requires >= 3 cells or rows an axis, so
+    no two offsets reach one row.  With z halo rows the reactions would
+    land on another device's rows: the double-sided walk."""
+    return not z_halo
+
+
+def _packed_slot(jj, row_end, cap):
+    """The packed slot of j-space index jj of a head-halo row whose
+    j-space row end is row_end (tbl[nx+1]): the row part, the right wrap
+    halo (cell 0, the row's first slots) or the left wrap halo (cell
+    nx-1, its last slots)."""
+    return torch.where(jj >= 2 * cap, jj - 2 * cap,
+                       torch.where(jj >= cap, jj - 4 * cap + row_end, jj))
+
+
 def multisite_cell_forces_packed_reference(
     tbl, r_i, r_j, *, nx, ny, nz, cap, Wp, Wjp, cell_plane, box, rc2, rc2_lj,
     screen_alpha, meta, z_halo=False,
 ):
     """Plain PyTorch version of K5 (see multisite_cell_forces_packed):
     each packed i molecule of cell c against the j slots of cells
-    c-1..c+1 of the 9 neighbour rows, read from the cell-start table;
-    the COM cutoff test first, then the pair function on the pairs
-    inside a cutoff."""
+    c-1..c+1 of the neighbour rows, read from the cell-start table; the
+    COM cutoff test first, then the pair function on the pairs inside a
+    cutoff.  Where K5 takes the half shell (ms_half_shell) this walks the
+    same pair set from the same side (the cutoff decided on i's
+    separation, as the kernel decides it): the centre row's j after i and
+    its right wrap halo, and the four forward rows; j gets -F, the same
+    virial share, and its torque from the pair function evaluated from
+    j's side."""
     P = r_i.shape[2]
     dtype, dev = r_i.dtype, r_i.device
     _bx, by, bz = (float(b) for b in box)
+    half = ms_half_shell(z_halo)
     nzj = nz + 2 if z_halo else nz
     R = nz * ny
     acc = torch.zeros((R * Wp, 9), dtype=dtype, device=dev)
@@ -227,6 +264,8 @@ def multisite_cell_forces_packed_reference(
     kB = torch.arange(cap, device=dev)
     slot = torch.arange(Wp, device=dev)
     rc = max(1, ref_lanes(dev) // (Wp * 4 * cap))
+    pair_kw = dict(rc2=rc2, rc2_lj=rc2_lj, screen_alpha=screen_alpha,
+                   meta=meta)
     for r0 in range(0, R, rc):
         rows = torch.arange(r0, min(R, r0 + rc), device=dev)
         zs, ys = rows // ny, rows % ny
@@ -235,7 +274,7 @@ def multisite_cell_forces_packed_reference(
         wi = pi4[..., 3] > 0.5
         c = torch.round(ri_flat[rows, cell_plane]).long().clamp(0, nx - 1)
         wrap_hi = c >= nx - 1
-        for dz, dy in OFFS:
+        for dz, dy in (HALF_ROWS if half else OFFS):
             zk, sz = _row_shift(zs, dz, nz, z_halo, bz, dtype, dev)
             yk, sy = _row_shift(ys, dy, ny, False, by, dtype, dev)
             jrow = zk * ny + yk
@@ -245,8 +284,10 @@ def multisite_cell_forces_packed_reference(
                              torch.gather(t, 1, c + 3))
             b1 = torch.where(wrap_hi, t[:, nx + 2:nx + 3], 0)
             j = torch.cat([a0[..., None] + kA, kB.expand(Rc, Wp, cap)], dim=-1)
-            okj = torch.cat([kA < (a1 - a0)[..., None],
-                             kB < b1[..., None]], dim=-1)
+            okA = kA < (a1 - a0)[..., None]
+            if half and (dz, dy) == (0, 0):
+                okA = okA & (j[..., :3 * cap] > (slot + 2 * cap)[None, :, None])
+            okj = torch.cat([okA, kB < b1[..., None]], dim=-1)
             jsafe = torch.clamp(j, 0, Wjp - 1)
             src = rj_flat[jrow, :4]  # [Rc, 4, Wjp]
             g = torch.gather(src, 2, jsafe.reshape(Rc, 1, -1).expand(Rc, 4, -1))
@@ -255,21 +296,25 @@ def multisite_cell_forces_packed_reference(
                               g[:, 2] + sz[:, None, None]], dim=-1)
             wj = okj & (g[:, 3] > 0.5)
             self_mask = None
-            if (dz, dy) == (0, 0):
+            if (dz, dy) == (0, 0) and not half:
                 self_mask = j == (slot + 2 * cap)[None, :, None]
             idx, drm, com2 = com_pairs(pi4[..., :3], wi, xj, wj, rc2, rc2_lj,
                                        self_mask)
             rr, ii, kk = idx
+            jj = j[rr, ii, kk]
             pi = ri_flat[rows[rr], :, ii]
-            pj = rj_flat[jrow[rr], :, j[rr, ii, kk]]
-            fmv, u6, ux, rf = pair_block(
-                pi, pj, drm, com2, rc2=rc2, rc2_lj=rc2_lj,
-                screen_alpha=screen_alpha, meta=meta)
+            pj = rj_flat[jrow[rr], :, jj]
+            fmv, u6, ux, rf = pair_block(pi, pj, drm, com2, **pair_kw)
             acc.index_add_(0, rows[rr] * Wp + ii, fmv)
             sums += torch.stack([u6, ux, rf])
+            if half:
+                torque_j = pair_block(pj, pi, -drm, com2, **pair_kw)[0][:, 3:6]
+                jslot = _packed_slot(jj, t[rr, nx + 1], cap)
+                acc.index_add_(0, jrow[rr] * Wp + jslot,
+                               torch.cat([-fmv[:, :3], torque_j, fmv[:, 6:]], 1))
     out = torch.zeros((nz, ny, NOUT, Wp), dtype=dtype, device=dev)
     out[:, :, :9] = acc.reshape(nz, ny, Wp, 9).permute(0, 1, 3, 2)
-    u6, ux, rf = (0.5 * sums).unbind()
+    u6, ux, rf = (sums if half else 0.5 * sums).unbind()
     return out, u6, ux, rf
 
 
@@ -277,15 +322,20 @@ def multisite_cell_forces_packed(
     tbl, r_i, r_j, *, nx, ny, nz, cap, Wp, Wjp, cell_plane, box, rc2, rc2_lj,
     screen_alpha, meta, z_halo=False,
 ):
-    """K5 wrapper: double-sided rigid multi-site forces of the packed
-    rows r_i [nz, ny, P, Wp] against the head-halo j rows r_j [nzj, ny,
-    P, Wjp] with the cell-start table tbl [nzj, ny, nx+3] int32
-    (nzj = nz + 2 with z_halo: explicit halo rows, global-z shifts
-    pre-applied; otherwise nz, wrapped in z with -+bz).  y wraps with
-    -+by.  The grid needs >= 3 cells per axis (in z, counting explicit
-    halo rows) and a cell edge >= the cutoff.  Cutoffs, bodies and outputs as K6 (ops/cuda_ms.py:
-    multisite_cell_forces).  Returns (out [nz, ny, 10, Wp], u6, uX,
-    myRF)."""
+    """K5 wrapper: rigid multi-site forces of the packed rows r_i [nz,
+    ny, P, Wp] against the head-halo j rows r_j [nzj, ny, P, Wjp] with
+    the cell-start table tbl [nzj, ny, nx+3] int32 (nzj = nz + 2 with
+    z_halo: explicit halo rows, global-z shifts pre-applied; otherwise
+    nz, wrapped in z with -+bz).  y wraps with -+by.  The grid needs >= 3
+    cells per axis (in z, counting explicit halo rows) and a cell edge >=
+    the cutoff.  Cutoffs, bodies and outputs as K6 (ops/cuda_ms.py:
+    multisite_cell_forces).  Where ms_half_shell holds (no z halo rows)
+    each pair inside the cutoff is evaluated once and its reaction added
+    to j by atomics: the output agrees with the plain version to rounding
+    and its last bits vary from run to run; the call counts on
+    `half_launches` too.  With z halo rows each pair is evaluated from
+    both sides, deterministically.  Returns (out [nz, ny, 10, Wp], u6,
+    uX, myRF)."""
     what = "multisite_cell_forces_packed"
     nzj = nz + 2 if z_halo else nz
     P = r_i.shape[2]
@@ -314,23 +364,27 @@ def multisite_cell_forces_packed(
         raise ValueError(f"{what}: inputs must be contiguous")
     res = launch_packed(tbl, r_i, r_j, **kw)
     multisite_cell_forces_packed.launches += 1
+    multisite_cell_forces_packed.half_launches += ms_half_shell(z_halo)
     return res
 
 
 multisite_cell_forces_packed.launches = 0
+multisite_cell_forces_packed.half_launches = 0
 
 
 def launch_packed(tbl, r_i, r_j, *, nx, ny, nz, cap, Wp, Wjp, cell_plane, box,
                   rc2, rc2_lj, screen_alpha, meta, z_halo=False):
     """The launch of csrc/ms_packed.cu behind
     multisite_cell_forces_packed, on checked inputs."""
+    zh = int(bool(z_halo))
     return launch(
-        "ms_packed", r_i, (nz, ny, NOUT, Wp), (Wp, ny, nz),
+        "ms_packed", r_i, (nz, ny, NOUT, Wp), (Wp, ny, nz, zh),
         lambda out, part, tab, terms: (
             tbl.data_ptr(), r_i.data_ptr(), r_j.data_ptr(), out.data_ptr(),
             part.data_ptr(), tab, terms, nx, ny, nz, cap, r_i.shape[2], Wp,
-            Wjp, cell_plane, int(bool(z_halo))),
-        meta=meta, box=box, rc2=rc2, rc2_lj=rc2_lj, screen_alpha=screen_alpha)
+            Wjp, cell_plane, zh),
+        meta=meta, box=box, rc2=rc2, rc2_lj=rc2_lj, screen_alpha=screen_alpha,
+        zero=ms_half_shell(z_halo))
 
 
 class CudaMultiSitePackedPath(CudaMultiSitePath):

@@ -318,8 +318,8 @@ def test_k4_device_code_matches_plain(on_emu, case):
 
 
 class OnCard(torch.Tensor):
-    """A CPU tensor that the K3 wrapper takes for one on the card, so that
-    it launches (the CPU build) and counts."""
+    """A CPU tensor that a kernel wrapper (K3's, K5's) takes for one on
+    the card, so that it launches (the CPU build) and counts."""
 
     @property
     def device(self):

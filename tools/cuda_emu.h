@@ -13,12 +13,12 @@
 // only at a barrier, so a block's `__shared__` variables can be function
 // statics and atomics need no lock.  __syncthreads() is a barrier of the
 // block's fibers; every warp intrinsic (shuffles, __ballot_sync,
-// __reduce_*_sync, __syncwarp) is a barrier of the warp's 32 fibers
-// around a per-warp exchange buffer (double-buffered, one barrier per
-// exchange).  Only full-warp masks are taken: anything else aborts, as
-// does a barrier that can never be released (a divergent
-// __syncthreads).  Dynamic shared memory starts as 0xff bytes (NaN in
-// f32/f64), so a read before a write shows.
+// __any_sync, __match_any_sync, __reduce_*_sync, __syncwarp) is a
+// barrier of the warp's 32 fibers around a per-warp exchange buffer
+// (double-buffered, one barrier per exchange).  Only full-warp masks are
+// taken: anything else aborts, as does a barrier that can never be
+// released (a divergent __syncthreads).  Dynamic shared memory starts as
+// 0xff bytes (NaN in f32/f64), so a read before a write shows.
 //
 // Arithmetic: the _rn intrinsics are the plain IEEE operations (hence
 // -ffp-contract=off); rsqrtf / rsqrt are 1/sqrt (the card's are within
@@ -281,6 +281,17 @@ inline unsigned __ballot_sync(unsigned mask, int pred) {
   const uint64_t* b = emu::exchange(mask, (int)(pred != 0));
   unsigned out = 0;
   for (int l = 0; l < 32; ++l) out |= (unsigned)emu::pick<int>(b, l) << l;
+  return out;
+}
+
+inline int __any_sync(unsigned mask, int pred) {
+  return __ballot_sync(mask, pred) != 0u;
+}
+// the lanes whose value equals this lane's
+inline unsigned __match_any_sync(unsigned mask, int v) {
+  const uint64_t* b = emu::exchange(mask, v);
+  unsigned out = 0;
+  for (int l = 0; l < 32; ++l) out |= (unsigned)(emu::pick<int>(b, l) == v) << l;
   return out;
 }
 
